@@ -1,0 +1,83 @@
+"""Carry the JAX package's state over into the port.
+
+Every input is plain data -- a dict of ``CRRM_parameters`` fields and
+numpy arrays -- so this module needs neither package of the reference.
+The layouts and dtypes stay those of the reference at every public
+function: attachment, serving cells, TTT counters, HARQ retx counts, the
+round-robin cursor and the TTI counter stay int32; floats stay float32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.crrm import CRRM
+from repro_torch.core.params import CRRM_parameters
+from repro_torch.mac.engine import EpisodeState, EpisodeStatic
+from repro_torch.sim.radio import RadioState
+
+
+def to_tensor(x, device):
+    """A numpy array (or scalar) as a tensor on ``device``: integers as
+    int32, booleans as bool, everything else as float32."""
+    if x is None:
+        return None
+    arr = np.asarray(x)
+    if arr.dtype == np.bool_:
+        dtype = torch.bool
+    elif np.issubdtype(arr.dtype, np.integer):
+        dtype = torch.int32
+    else:
+        dtype = torch.float32
+    return torch.as_tensor(np.ascontiguousarray(arr), device=device).to(dtype)
+
+
+def params_from_dict(fields: dict) -> CRRM_parameters:
+    """The port's ``CRRM_parameters`` from the reference's field values."""
+    names = {f.name for f in dataclasses.fields(CRRM_parameters)}
+    unknown = set(fields) - names
+    if unknown:
+        raise ValueError(f"unknown CRRM_parameters fields: {sorted(unknown)}")
+    return CRRM_parameters(**fields)
+
+
+def crrm_from_reference(fields: dict, roots: dict, device) -> CRRM:
+    """A port ``CRRM`` on ``device`` whose graph roots are the reference's.
+
+    ``roots`` holds the numpy values of the reference graph's ``U``, ``C``,
+    ``P``, ``boresight`` and ``fading`` roots; the backlog may be given as
+    ``buffer``.
+    """
+    fields = dict(fields, ue_positions=np.asarray(roots["U"]),
+                  cell_positions=np.asarray(roots["C"]))
+    sim = CRRM(params_from_dict(fields), device=device)
+    sim.P.set(to_tensor(roots["P"], sim.device))
+    sim.boresight.set(to_tensor(roots["boresight"], sim.device))
+    sim.fading.set(to_tensor(roots["fading"], sim.device))
+    if "buffer" in roots:
+        sim.buffer.set(to_tensor(roots["buffer"], sim.device))
+    return sim
+
+
+def _tuple(cls, data: dict, device):
+    return cls(**{f: to_tensor(data.get(f), device) for f in cls._fields})
+
+
+def episode_static(data: dict, device) -> EpisodeStatic:
+    """The port's ``EpisodeStatic`` from the reference's fields."""
+    return _tuple(EpisodeStatic, data, device)
+
+
+def episode_state(data: dict, device) -> EpisodeState:
+    """The port's ``EpisodeState`` from the reference's fields (its PRNG
+    ``key`` is ignored: the port draws through ``mac.engine.Draws``)."""
+    return _tuple(EpisodeState, {k: v for k, v in data.items() if k != "key"},
+                  device)
+
+
+def radio_state(data: dict, device) -> RadioState:
+    """The port's ``RadioState`` from the reference's fields (None stays
+    None)."""
+    return _tuple(RadioState, data, device)

@@ -1,0 +1,34 @@
+"""Public wrappers over the port's kernels: the fused SINR pipeline.
+
+The counterpart of ``repro.kernels.ops``.  The CUDA kernel masks ragged
+edges itself, so unlike the TPU wrapper nothing is padded here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import fused_sinr as _fused
+
+
+def fused_sinr(U, C, Pw, *, pathgain_fn, noise_w: float, boresight=None,
+               fad=None, attach_on_mean: bool = False, n_sectors: int = 1):
+    """Fused D->G->RSRP->w/u->SINR pipeline: returns (gamma, a, w, u).
+
+    ``a`` is the (N,) int32 attachment, ``w``/``u`` the (N, K) wanted and
+    interference powers, ``gamma = w / (noise + u)``.  ``fad`` streams
+    per-link fading -- (N, M) wideband or (N, M, K) per-RB -- and
+    ``attach_on_mean`` attaches on the unfaded RSRP row sum.  The same
+    entry point serves the dirty-row incremental backend: callers gather
+    the dirty UE slab and scatter the returned rows back
+    (``radio.radio_update_rows_fused``).
+    """
+    if boresight is None:
+        boresight = torch.zeros((C.shape[0],), dtype=torch.float32,
+                                device=C.device)
+    total, _, barg, wbest = _fused.fused_sinr_accumulate(
+        U, C, Pw, boresight.reshape(-1).contiguous(), fad,
+        pathgain_fn=pathgain_fn, n_sectors=n_sectors,
+        attach_on_mean=attach_on_mean)
+    u = total - wbest
+    gamma = wbest / (noise_w + u)
+    return gamma, barg[:, 0], wbest, u

@@ -1,0 +1,186 @@
+"""The port's hand-written CUDA kernel against its plain PyTorch version.
+
+These tests need a CUDA device and the CUDA toolkit: each one asks the
+``cuda`` fixture, which skips on a host without a card.  They run on the
+card with ``python -m pytest -m gpu tests/test_torch_cuda.py``.
+
+Contract (the fused kernel vs ``fused_sinr_accumulate_plain`` on the same
+card and inputs): ``total``/``w_best``/gamma to rtol 1e-4 (sum order and
+ulp differences of log10f/powf against PyTorch's kernels); attachment
+exact except on rows whose two best measurements differ by less than 1e-5
+relative in the plain version (counted; at most 1 % of the rows).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.crrm import CRRM
+from repro_torch.core.params import CRRM_parameters
+from repro_torch.kernels import fused_sinr as fk
+from repro_torch.mac.engine import Draws
+from repro_torch.sim import pathloss, radio
+
+pytestmark = pytest.mark.gpu
+
+MODELS = {
+    "RMa": dict(fc_GHz=0.7),
+    "RMa_constant_height": dict(fc_GHz=0.7),
+    "RMa_discretised": dict(fc_GHz=0.7),
+    "UMa": dict(),
+    "UMi": dict(),
+    "InH": dict(),
+    "power_law": dict(alpha=3.5),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
+
+
+def make_inputs(n, m, k, fading, seed=0, n_sectors=1, extent=2000.0,
+                h_bs=25.0, device="cpu"):
+    """Deterministic numpy inputs of the kernel, as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    U = np.column_stack([rng.uniform(0, extent, (n, 2)),
+                         rng.uniform(1.0, 2.5, (n, 1))]).astype(np.float32)
+    n_sites = max(1, m // n_sectors)
+    sites = np.column_stack([rng.uniform(0, extent, (n_sites, 2)),
+                             np.full((n_sites, 1), h_bs)])
+    C = np.repeat(sites, n_sectors, axis=0)[:m].astype(np.float32)
+    P = rng.uniform(1.0, 10.0, (m, k)).astype(np.float32)
+    bore = ((np.arange(m) % n_sectors) * (2 * np.pi / n_sectors)).astype(
+        np.float32)
+    fad = None
+    if fading == "wide":
+        fad = rng.exponential(1.0, (n, m)).astype(np.float32)
+    elif fading == "rb":
+        fad = rng.exponential(1.0, (n, m, k)).astype(np.float32)
+    t = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    return t(U), t(C), t(P), t(bore), t(fad)
+
+
+def near_ties(U, C, P, bore, fad, model, n_sectors, attach_on_mean):
+    """Mask of the rows whose two best measurements differ < 1e-5 rel."""
+    g = radio.pathgains(radio.RadioConfig(model, radio.Antenna_gain(),
+                                          n_sectors, 0.0, 1, 1, 1, 1, False,
+                                          True, False, 1.0),
+                        U, C, bore)
+    if fad is not None and not attach_on_mean:
+        g = radio.apply_fading(g, fad)
+    meas = radio.rsrp(g, P).sum(dim=2)
+    top2 = torch.topk(meas, 2, dim=1).values
+    return ((top2[:, 0] - top2[:, 1]) < 1e-5 * top2[:, 0]).cpu().numpy()
+
+
+def check_against_plain(args, model, n_sectors, attach_on_mean):
+    U, C, P, bore, fad = args
+    kw = dict(pathgain_fn=model, n_sectors=n_sectors,
+              attach_on_mean=attach_on_mean)
+    before = fk.fused_sinr_accumulate.launches
+    got = fk.fused_sinr_accumulate(U, C, P, bore, fad, **kw)
+    torch.cuda.synchronize()
+    assert fk.fused_sinr_accumulate.launches == before + 1
+    want = fk.fused_sinr_accumulate_plain(U, C, P, bore, fad, **kw)
+    total, bval, bidx, wbest = (x.cpu().numpy() for x in got)
+    t_p, v_p, i_p, w_p = (x.cpu().numpy() for x in want)
+    np.testing.assert_allclose(total, t_p, rtol=1e-4)
+    np.testing.assert_allclose(bval, v_p, rtol=1e-4)
+    ties = near_ties(U, C, P, bore, fad, model, n_sectors, attach_on_mean)
+    assert ties.mean() <= 0.01
+    np.testing.assert_array_equal(bidx[~ties], i_p[~ties])
+    np.testing.assert_allclose(wbest[~ties], w_p[~ties], rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("fading,attach_on_mean",
+                         [(None, False), ("wide", False), ("wide", True),
+                          ("rb", False), ("rb", True)])
+@pytest.mark.parametrize("n_sectors", [1, 3])
+def test_kernel_matches_plain(cuda, name, fading, attach_on_mean, n_sectors):
+    """Every pathloss model x fading mode x sectoring, at a ragged shape
+    (N=1000, M=57: neither a multiple of the block nor of the cell tile)."""
+    model = pathloss.make_pathloss(name, **MODELS[name])
+    h_bs = 35.0 if name.startswith("RMa") else 25.0
+    args = make_inputs(1000, 57, 4 if fading == "rb" else 2, fading,
+                       seed=sorted(MODELS).index(name), n_sectors=n_sectors,
+                       h_bs=h_bs, device=cuda)
+    check_against_plain(args, model, n_sectors, attach_on_mean)
+
+
+def test_kernel_tie_takes_lowest_cell(cuda):
+    """Two co-located equal-power cells: the lower index serves."""
+    U = torch.tensor([[100.0, 0.0, 1.5], [0.0, 300.0, 1.5]], device=cuda)
+    C = torch.tensor([[0.0, 0.0, 25.0], [500.0, 0.0, 25.0],
+                      [0.0, 0.0, 25.0]], device=cuda)
+    P = torch.full((3, 1), 5.0, device=cuda)
+    bore = torch.zeros(3, device=cuda)
+    out = fk.fused_sinr_accumulate(U, C, P, bore, None,
+                                   pathgain_fn=pathloss.UMa_pathloss())
+    assert out[2][:, 0].tolist() == [0, 0]
+
+
+def test_torch_argmax_ties_lowest_index_on_cuda(cuda):
+    """The attachment, max_cqi and A3 rely on the first maximum."""
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0], [5.0, 5.0, 5.0, 5.0]],
+                     device=cuda)
+    assert torch.argmax(x, dim=1).tolist() == [1, 0]
+    s = torch.tensor([[[2], [7]], [[7], [7]], [[1], [7]]], device=cuda)
+    assert torch.argmax(s, dim=0)[:, 0].tolist() == [1, 0]
+
+
+def test_kernel_rejects_wrong_inputs(cuda):
+    U, C, P, bore, _ = make_inputs(8, 4, 1, None, device=cuda)
+    with pytest.raises(TypeError):
+        fk.fused_sinr_accumulate(U.double(), C, P, bore,
+                                 pathgain_fn=pathloss.UMa_pathloss())
+    with pytest.raises(ValueError):
+        fk.fused_sinr_accumulate(U, C, P, bore.cpu(),
+                                 pathgain_fn=pathloss.UMa_pathloss())
+    with pytest.raises(ValueError, match="cannot express"):
+        fk.fused_sinr_accumulate(U, C, P, bore,
+                                 pathgain_fn=lambda d2, d3, hb, hu: 1 / d3)
+
+
+def test_forward_fused_matches_torch_on_cuda(cuda):
+    sim = CRRM(CRRM_parameters(n_ues=2000, n_cells=21, n_sectors=3,
+                               pathloss_model_name="UMi", h_bs_m=10.0,
+                               rayleigh_fading=True, n_rb_subbands=4,
+                               extent_m=1200.0, power_W=6.3, seed=1),
+               device=cuda)
+    rs = sim.radio_static()
+    U, fad = sim.U._data, sim.fading._data
+    o_t = radio.radio_forward(rs, U, fad=fad)
+    o_f = radio.radio_forward(rs, U, fad=fad, backend="fused")
+    assert torch.equal(o_f.a, o_t.a)
+    # gamma = w / (noise + total - w): the rtol 1e-4 of w and total reaches
+    # gamma amplified by its condition number 1 + (w + total) / (noise + u)
+    w = radio.wanted(o_t.rsrp, o_t.a)
+    u = radio.interference(o_t.rsrp, w)
+    kappa = 1.0 + (2 * w + u) / (rs.cfg.noise_w + u)
+    assert ((o_f.gamma - o_t.gamma).abs()
+            <= 1e-4 * kappa * o_t.gamma.abs()).all()
+
+
+def test_engine_inc_fused_matches_torch_on_cuda(cuda):
+    """The incremental engine through the kernel, against the torch row
+    recompute, on the same draws."""
+    p = CRRM_parameters(n_ues=4000, n_cells=19, seed=3,
+                        pathloss_model_name="UMa", power_W=10.0,
+                        scheduler_policy="pf", fairness_p=0.5,
+                        mobility_step_m=20.0, mobility_move_frac=0.1,
+                        radio_mode="incremental")
+    out = {}
+    for be in ("torch", "fused"):
+        sim = CRRM(p, device=cuda)
+        fns = sim.episode_fns(inc_backend=be)
+        before = fk.fused_sinr_accumulate.launches
+        _, t = fns.rollout(sim.episode_static(), sim.init_episode_state(), 5,
+                           Draws(0, cuda))
+        out[be] = t.cpu().numpy()
+        launched = fk.fused_sinr_accumulate.launches - before
+        assert launched == (5 if be == "fused" else 0)
+    np.testing.assert_allclose(out["fused"], out["torch"], rtol=1e-4,
+                               atol=1.0)

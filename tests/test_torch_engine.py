@@ -1,0 +1,266 @@
+"""The port's TTI engine against the JAX package: whole trajectories.
+
+Both engines start from the same ``EpisodeStatic``/``EpisodeState``
+(carried over with ``repro_torch.convert``) and the port replays the
+reference's own random draws (``ReplayDraws``: the reference's mobility,
+fading, traffic and HARQ draws on ``radio.tti_keys(key, t)``).
+Under bursty traffic the reference rolls out eagerly (``jax.disable_jit``):
+compiled, XLA fuses the TTI body and rounds the drained backlog
+differently (an ulp residue of ~1e-3 bits where the eager ops -- and the
+port -- leave 0), and such a residue flips a UE's active mask so the
+trajectory diverges, as ``repro.mac.engine``'s docstring notes for any
+reordering.  Full-buffer backlogs are infinite, so those run compiled.
+Tolerances: per-TTI throughput rtol 1e-4 (sum order of the per-cell PF
+shares and ulps of the radio chain; atol 1 bit/s for exact zeros);
+positions rtol 1e-6; integer state (serving, ttt, harq_retx, rr_cursor,
+t) exact.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.params import CRRM_parameters as JParams
+from repro.mac import engine as j_engine
+from repro.sim import mobility as j_mobility
+from repro.sim import radio as j_radio
+from repro.sim import scenarios
+from repro_torch import convert
+from repro_torch.kernels import fused_sinr as t_fused
+from repro_torch.mac import engine as t_engine
+from torch_parity import DEV, np_, pair
+
+N_TTI = 20
+RTOL_TPUT = 1e-4
+
+
+class ReplayDraws(t_engine.Draws):
+    """The reference's per-TTI draws, handed to the port as tensors."""
+
+    def __init__(self, key, ref_sim):
+        super().__init__(0, DEV)
+        self.key, self.ref = key, ref_sim
+
+    def keys(self, t):
+        return j_radio.tti_keys(self.key, t)
+
+    def walk(self, t, n, step_m):
+        d = j_mobility.walk_steps(self.keys(t)[0], n, step_m)
+        return torch.as_tensor(np_(d))
+
+    def window(self, t, n, n_move, step_m):
+        start, d = j_mobility.window_movers(self.keys(t)[0], n, n_move,
+                                           step_m)
+        return torch.tensor(int(start)), torch.as_tensor(np_(d))
+
+    def fading(self, t, cfg, n_ues, n_cells):
+        f = j_radio.draw_fading(self.ref.radio_config(), self.keys(t)[1],
+                                n_ues, n_cells)
+        return torch.as_tensor(np_(f))
+
+    def traffic(self, t, traffic_step):
+        return torch.as_tensor(np_(self.ref._traffic_step(self.keys(t)[2], t)))
+
+    def harq_uniform(self, t, n):
+        return torch.as_tensor(np_(jax.random.uniform(self.keys(t)[3], (n,))))
+
+    def harq_bernoulli(self, t, p, n):
+        return torch.as_tensor(np_(jax.random.bernoulli(self.keys(t)[3], p,
+                                                        (n,))))
+
+
+def carried(ref, key):
+    """The reference's static and initial state, and the port's copies."""
+    static, state = ref.episode_static(), ref.init_episode_state(key)
+    as_dict = lambda nt: {k: np_(v) for k, v in nt._asdict().items()
+                          if v is not None}
+    return (static, state, convert.episode_static(as_dict(static), DEV),
+            convert.episode_state(as_dict(state), DEV))
+
+
+def run_pair(params, n_tti=N_TTI, key=0, **kw):
+    ref, port = pair(params)
+    k = jax.random.PRNGKey(key)
+    static_j, state_j, static_t, state_t = carried(ref, k)
+    with jax.disable_jit(params.traffic_model != "full_buffer"):
+        s_j, tput_j = ref.episode_fns(**kw).rollout(static_j, state_j, n_tti)
+    tkw = dict(kw)
+    if tkw.get("inc_backend") == "xla":
+        tkw["inc_backend"] = "torch"
+    s_t, tput_t = port.episode_fns(**tkw).rollout(
+        static_t, state_t, n_tti, ReplayDraws(k, ref))
+    return (s_j, np_(tput_j)), (s_t, np_(tput_t))
+
+
+def check(ref_out, port_out):
+    (s_j, tput_j), (s_t, tput_t) = ref_out, port_out
+    assert tput_t.dtype == np.float32 and tput_t.shape == tput_j.shape
+    np.testing.assert_allclose(tput_t, tput_j, rtol=RTOL_TPUT, atol=1.0)
+    np.testing.assert_allclose(np_(s_t.U), np_(s_j.U), rtol=1e-6)
+    for f in ("serving", "ttt", "harq_retx", "rr_cursor", "t"):
+        got, want = np_(getattr(s_t, f)), np_(getattr(s_j, f))
+        assert got.dtype == np.int32, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    np.testing.assert_allclose(np_(s_t.pf_avg), np_(s_j.pf_avg),
+                               rtol=RTOL_TPUT, atol=1.0)
+    np.testing.assert_allclose(np_(s_t.backlog), np_(s_j.backlog),
+                               rtol=RTOL_TPUT, atol=1.0)
+    np.testing.assert_allclose(np_(s_t.harq_bits), np_(s_j.harq_bits),
+                               rtol=RTOL_TPUT, atol=1.0)
+
+
+BASE = dict(n_ues=48, n_cells=7, seed=2, pathloss_model_name="UMa",
+            power_W=10.0, extent_m=1500.0)
+
+
+@pytest.mark.parametrize("policy,traffic,harq", [
+    ("rr", "full_buffer", None),
+    ("max_cqi", "poisson", "saw"),
+    ("pf", "poisson", "lite"),
+    ("pf", "full_buffer", "saw"),
+])
+def test_static_channel_trajectories_match_reference(policy, traffic, harq):
+    params = JParams(**BASE, scheduler_policy=policy, fairness_p=0.5,
+                     traffic_model=traffic, harq_bler=0.0 if harq is None
+                     else 0.1,
+                     traffic_params=dict(arrival_rate_hz=300.0)
+                     if traffic == "poisson" else {})
+    kw = {} if harq is None else dict(use_harq=harq == "saw")
+    check(*run_pair(params, **kw))
+
+
+@pytest.mark.parametrize("per_tti_fading", [False, True])
+def test_dense_urban_mobile_with_handover_matches_reference(per_tti_fading):
+    """Mobility + A3 handover + per-RB fading (static or redrawn per TTI),
+    rr so that the grants are exact integers."""
+    params = scenarios.make_scenario("dense_urban_mobile", n_ues=40,
+                                     n_cells=6, scheduler_policy="rr",
+                                     traffic_model="full_buffer")
+    check(*run_pair(params, per_tti_fading=per_tti_fading))
+
+
+def test_window_movers_with_per_tti_fading_match_reference():
+    params = JParams(**BASE, scheduler_policy="max_cqi",
+                     rayleigh_fading=True, n_rb_subbands=2,
+                     mobility_step_m=20.0, mobility_move_frac=0.25)
+    check(*run_pair(params, per_tti_fading=True))
+
+
+MILLION = dict(n_cells=19, n_sectors=1, seed=3, pathloss_model_name="UMa",
+               power_W=10.0, scheduler_policy="pf", fairness_p=0.5,
+               mobility_step_m=20.0, mobility_move_frac=0.1)
+
+
+@pytest.mark.parametrize("inc_backend", ["torch", "fused"])
+def test_million_episode_config_incremental_matches_reference(inc_backend):
+    """The million-episode configuration at 64 UEs: incremental mode, the
+    port's torch rows and its fused route (the kernel's plain version on
+    the CPU) against the reference's incremental XLA rows."""
+    params = JParams(n_ues=64, radio_mode="incremental", **MILLION)
+    ref, port = run_pair(params, inc_backend="xla" if inc_backend == "torch"
+                         else None)
+    if inc_backend == "fused":
+        # rerun the port through the fused route on the same inputs
+        r, p = pair(params)
+        k = jax.random.PRNGKey(0)
+        _, _, static_t, state_t = carried(r, k)
+        before = t_fused.fused_sinr_accumulate.launches
+        port = p.episode_fns(inc_backend="fused").rollout(
+            static_t, state_t, N_TTI, ReplayDraws(k, r))
+        port = (port[0], np_(port[1]))
+        assert t_fused.fused_sinr_accumulate.launches == before  # CPU: plain
+    check(ref, port)
+
+
+def test_incremental_handover_tables_match_reference():
+    """dense_urban_twin: incremental mode carrying the handover tables,
+    through the torch row recompute."""
+    params = scenarios.make_scenario("dense_urban_twin", n_ues=40, n_cells=6,
+                                     scheduler_policy="rr",
+                                     traffic_model="full_buffer")
+    check(*run_pair(params, inc_backend="xla"))
+
+
+def test_port_dense_equals_incremental():
+    """Inside the port: the dense engine and the incremental engine on the
+    same draws (cf. tests/test_smart_update_scan.py)."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    p = CRRM_parameters(n_ues=64, **MILLION)
+    outs = {}
+    for mode, be in (("dense", None), ("incremental", "torch"),
+                     ("incremental", "fused"), ("incremental", "auto")):
+        sim = CRRM(p, device="cpu")
+        fns = sim.episode_fns(radio_mode=mode, inc_backend=be)
+        s, t = fns.rollout(sim.episode_static(), sim.init_episode_state(),
+                           N_TTI, t_engine.Draws(5, "cpu"))
+        outs[(mode, be)] = (s, t)
+    s0, t0 = outs[("dense", None)]
+    for key, (s, t) in outs.items():
+        np.testing.assert_allclose(np_(t), np_(t0), rtol=1e-5, atol=1e-2,
+                                   err_msg=str(key))
+        assert torch.equal(s.U, s0.U)
+
+
+def test_fused_inc_backend_raises_for_handover_tables():
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    sim = CRRM(CRRM_parameters(n_ues=8, n_cells=3, ho_enabled=True,
+                               radio_mode="incremental",
+                               mobility_step_m=5.0), device="cpu")
+    with pytest.raises(ValueError, match="cannot express"):
+        sim.episode_fns(inc_backend="fused")
+    sim.episode_fns(inc_backend="auto")        # the torch rows, no error
+    with pytest.raises(ValueError, match="per_tti_fading"):
+        sim.episode_fns(per_tti_fading=True)
+
+
+def test_default_draws_reproduce_a_tti_on_its_own():
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    p = CRRM_parameters(n_ues=32, n_cells=4, seed=1, traffic_model="poisson",
+                        harq_bler=0.2, mobility_step_m=10.0,
+                        scheduler_policy="rr")
+    sim = CRRM(p, device="cpu")
+    fns = sim.episode_fns()
+    st, s0 = sim.episode_static(), sim.init_episode_state()
+    s5, t5 = fns.rollout(st, s0, 5, t_engine.Draws(9, "cpu"))
+    s4, _ = fns.rollout(st, s0, 4, t_engine.Draws(9, "cpu"))
+    s5b, t5b = fns.step(st, s4, t_engine.Draws(9, "cpu"))
+    assert torch.equal(t5[-1], t5b) and torch.equal(s5.U, s5b.U)
+    assert int(s5b.t) == 5
+    run = sim.run_episode(5, draws=t_engine.Draws(9, "cpu"))
+    assert torch.equal(run, t5)
+    assert sim.sched.cursor == int(s5.rr_cursor)
+
+
+def test_a3_and_harq_helpers_match_reference():
+    rng = np.random.default_rng(0)
+    meas = rng.exponential(1.0, (50, 6)).astype(np.float32)
+    a = rng.integers(0, 6, 50).astype(np.int32)
+    ttt = rng.integers(0, 4, 50).astype(np.int32)
+    ja, jt = j_engine.a3_handover(jnp.asarray(a), jnp.asarray(ttt),
+                                  jnp.asarray(meas), 3.0, 4)
+    ta, tt = t_engine.a3_handover(torch.as_tensor(a), torch.as_tensor(ttt),
+                                  torch.as_tensor(meas), 3.0, 4)
+    np.testing.assert_array_equal(np_(ta), np_(ja))
+    np.testing.assert_array_equal(np_(tt), np_(jt))
+    assert np_(ta).dtype == np.int32 and np_(tt).dtype == np.int32
+    retx = np.arange(5, dtype=np.int32)
+    np.testing.assert_allclose(
+        np_(t_engine.harq_fail_prob(0.1, 3.0, torch.as_tensor(retx))),
+        np_(j_engine.harq_fail_prob(0.1, 3.0, jnp.asarray(retx))), rtol=1e-6)
+
+
+def test_stationary_served_tput_matches_the_graph():
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    for policy in ("rr", "max_cqi", "pf"):
+        sim = CRRM(CRRM_parameters(n_ues=30, n_cells=5, seed=1,
+                                   scheduler_policy=policy, fairness_p=0.3),
+                   device="cpu")
+        got = t_engine.stationary_served_tput(
+            sim.params, sim.n_cells, sim.get_spectral_efficiency(),
+            sim.get_CQI(), sim.get_attachment(), sim.get_backlog())
+        assert torch.equal(got, sim.get_served_throughputs())

@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU.
+
+An ``ast`` scan of every module of ``src/repro_torch`` and of
+``chip_smoke.py`` finds no import of ``jax`` or ``repro``; a fresh
+interpreter that imports every port module has not loaded ``jax``; the
+entry points default to the card and raise without one.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (the parity suites import both packages)
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def module_names():
+    return sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: p.name)
+def test_no_jax_or_reference_import(path):
+    bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {module_names()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch import resolve_device
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CRRM(CRRM_parameters(n_ues=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_fused_on_a_cuda_tensor_never_runs_the_plain_version(monkeypatch):
+    """The wrapper sends CUDA tensors to the kernel launcher only: with the
+    launcher replaced, the plain version must not be called."""
+    from repro_torch.kernels import fused_sinr as fk
+
+    class FakeCuda:
+        device = torch.device("cuda")
+
+    called = []
+    monkeypatch.setattr(fk, "_launch", lambda *a, **k: called.append("k"))
+    monkeypatch.setattr(fk, "fused_sinr_accumulate_plain",
+                        lambda *a, **k: called.append("plain"))
+    fk.fused_sinr_accumulate(FakeCuda(), None, None, None, pathgain_fn=None)
+    assert called == ["k"]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        class Meta:
+            device = torch.device("meta")
+        fk.fused_sinr_accumulate(Meta(), None, None, None, pathgain_fn=None)
