@@ -10,16 +10,31 @@ Phases, each printing its own lines:
 3. kernel  -- each kernel against its plain PyTorch version on the card, at
               small ragged shapes and at the main path's full widths, with
               CUDA-event times beside the plain version's and the bound;
-4. forward -- ``radio_forward(backend="fused")`` against the materialised
+4. pairwise -- the pairwise-distance kernel against its plain version at
+              ragged shapes and at the full width of the million-UE
+              field's D block (1M UEs x 127 cells), driven once through
+              its entry point ``kernels.ops.pairwise_dist``; CUDA-event
+              times of the kernel, the plain version and ``torch.cdist``
+              beside the byte bound;
+5. forward -- ``radio_forward(backend="fused")`` against the materialised
               chain at 100 000 UEs;
-5. episode -- the main path: the million-UE incremental episode through the
+6. episode -- the main path: the million-UE incremental episode through the
               fused kernel, its launch count per TTI, ms/TTI, peak memory
               and a torch.profiler breakdown of one TTI; then dense vs
-              incremental at 100 000 UEs on the same draws.
+              incremental at 100 000 UEs on the same draws;
+7. env     -- ``CrrmEnv`` on the ``dense_urban_twin`` preset at 100 000 UEs
+              with telemetry: reset, steps to ``done`` (ms per env step),
+              a ``fairness_p`` step, the KPI summary; telemetry on vs off,
+              two resets of one seed and ``step_autoreset`` held equal
+              bit for bit (in PyTorch's deterministic mode, so that the
+              atomics of ``index_add_`` add in a fixed order); one
+              ``resample_topology`` reset.
 
-The line before the last is the JSON of the kernels, the last line the JSON
-of the device.  Any disagreement raises, and the script exits non-zero.
-Without a CUDA device it exits non-zero before printing any result.
+Each path (pairwise, episode, env) sets every kernel's launch count to 0
+just before it and reads the counts just after.  The line before the last
+is the JSON of the kernels, the last line the JSON of the device.  Any
+disagreement raises, and the script exits non-zero.  Without a CUDA device
+it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 H100_FP32_OPS = 67e12        # float32 outside the tensor cores, op/s
 H100_BYTES = 3.35e12         # HBM3, bytes/s
 RTOL = 1e-4                  # total / w_best / gamma contract
+RTOL_DIST = 1e-6             # pairwise distances: the same rounded ops
 TIE_RTOL = 1e-5              # attachment near-tie margin
 
 # float32 operations per link of the kernel, one per arithmetic op or
@@ -51,6 +67,21 @@ OPS_ARGMAX = 1
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def launch_counts():
+    """{kernel: launches} of every kernel wrapper of the port."""
+    from repro_torch.kernels import fused_sinr as fk
+    from repro_torch.kernels import pairwise_dist as pdk
+    return {"fused_sinr": fk.fused_sinr_accumulate.launches,
+            "pairwise_dist": pdk.pairwise_dist.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels import fused_sinr as fk
+    from repro_torch.kernels import pairwise_dist as pdk
+    fk.fused_sinr_accumulate.launches = 0
+    pdk.pairwise_dist.launches = 0
 
 
 def cuda_ms(fn, reps=20, warm=3):
@@ -99,9 +130,12 @@ def phase_device():
 
 def phase_build():
     from repro_torch.kernels import build
-    for src in sorted(build.CSRC.glob("*.cu")):
-        _, info = build.load(src.stem)
-        log("build", f"{src.name}: {info.seconds:.2f} s -> {info.path.name}")
+    t0 = time.perf_counter()
+    libs = build.load_all()            # one nvcc per source, all at once
+    log("build", f"{len(libs)} sources built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, (_, info) in libs.items():
+        log("build", f"{name}.cu: {info.seconds:.2f} s -> {info.path.name}")
         for line in info.log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry")):
@@ -212,6 +246,79 @@ def phase_kernel():
     return rows
 
 
+def dist_errors(got, want):
+    """(max abs err in metres, max rel err) of (d2d, d3d) pairs."""
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel_err = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+                  for g, w in zip(got, want))
+    return abs_err, rel_err
+
+
+def phase_pairwise(smi):
+    """The pairwise-distance kernel: ragged parity, then its path at the
+    million-UE field's full width and its times there."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_dist as pdk
+    for n, m in ((1, 1), (7, 3), (33, 257), (1000, 57), (100_000, 127)):
+        g = torch.Generator(device="cuda").manual_seed(n + m)
+        U = torch.rand((n, 3), generator=g, device="cuda") * torch.tensor(
+            [5000.0, 5000.0, 1.5], device="cuda")
+        C = torch.rand((m, 3), generator=g, device="cuda") * torch.tensor(
+            [5000.0, 5000.0, 25.0], device="cuda")
+        got = pdk.pairwise_dist(U, C)
+        torch.cuda.synchronize()
+        abs_err, rel_err = dist_errors(got, pdk.pairwise_dist_plain(U, C))
+        log("pairwise", f"N={n} M={m}: max abs err {abs_err:.3e} m, max rel "
+            f"err {rel_err:.3e}")
+        if rel_err > RTOL_DIST:
+            raise AssertionError(f"pairwise_dist vs plain rel err "
+                                 f"{rel_err:.3e} > {RTOL_DIST}")
+    # the D block of the million-UE field: the episode's own UEs and cells
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, n_cells=127, n_sectors=1,
+                               seed=3))
+    U, C = sim.U._data.contiguous(), sim.C._data.contiguous()
+    n, m = U.shape[0], C.shape[0]
+    del sim
+    # -- the path: counts to 0 just before, read just after ---------------
+    zero_counts()
+    d2d, d3d = ops.pairwise_dist(U, C)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log("pairwise", f"path ops.pairwise_dist at N={n} M={m}: launches "
+        f"{counts}")
+    if counts["pairwise_dist"] != 1:
+        raise AssertionError(f"pairwise_dist path launched {counts}")
+    if d2d.shape != (n, m) or not (torch.isfinite(d2d).all()
+                                   and torch.isfinite(d3d).all()):
+        raise AssertionError("non-finite or misshapen distances")
+    plain = pdk.pairwise_dist_plain(U, C)
+    abs_err, rel_err = dist_errors((d2d, d3d), plain)
+    if rel_err > RTOL_DIST:
+        raise AssertionError(f"pairwise_dist vs plain at full width: rel "
+                             f"err {rel_err:.3e}")
+    lib = (torch.cdist(U[:, :2], C[:, :2]), torch.cdist(U, C))
+    lib_abs, lib_rel = dist_errors(lib, plain)
+    del lib, plain, d2d, d3d
+    ms = cuda_ms(lambda: pdk.pairwise_dist(U, C), reps=20)
+    plain_ms = cuda_ms(lambda: pdk.pairwise_dist_plain(U, C), reps=20)
+    library_ms = cuda_ms(lambda: (torch.cdist(U[:, :2], C[:, :2]),
+                                  torch.cdist(U, C)), reps=20)
+    # the least time: each input read once, both outputs written once
+    b_ms = (8 * n * m + 12 * (n + m)) / H100_BYTES * 1e3
+    o_ms = n * m * OPS_DIST / H100_FP32_OPS * 1e3
+    bound, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    log("pairwise", f"N={n} M={m} ({smi}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.cdist x2 {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); kernel vs plain max abs err {abs_err:.3e} "
+        f"m (rel {rel_err:.2e}); cdist vs plain max abs err {lib_abs:.3e} m "
+        f"(rel {lib_rel:.2e})")
+    return dict(launches=counts["pairwise_dist"], max_abs_err=abs_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
 def phase_forward():
     from repro_torch.core.crrm import CRRM
     from repro_torch.core.params import CRRM_parameters
@@ -272,40 +379,48 @@ def per_tti_ms(fns, static, state, draws):
     return (times[6] - times[1]) / 5 * 1e3
 
 
-def device_breakdown(fns, static, state, draws, top=8):
-    """Per-TTI device busy time, kernel launches and the heaviest kernels,
-    from ``torch.profiler``: a rollout of 6 TTIs minus a rollout of 1, which
-    cancels the set-up (the full-width RadioState init)."""
+def profiled(fn):
+    """(wall seconds, {kernel: (device us, launches)}) of one ``fn()`` under
+    ``torch.profiler``, synchronised at both ends."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    runs = {}
-    for n in (1, 6):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fns.rollout(static, state, n, draws)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0.0)
-            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[e.key] = (us, e.count)
-        runs[n] = (wall, kernels)
-    (w1, k1), (w6, k6) = runs[1], runs[6]
-    per = {name: ((us - k1.get(name, (0.0, 0))[0]) / 5,
-                  (cnt - k1.get(name, (0.0, 0))[1]) / 5)
-           for name, (us, cnt) in k6.items()}
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (us, e.count)
+    return wall, kernels
+
+
+def log_breakdown(phase, unit, wall_us, per, top=8):
+    """Device busy/idle share and the heaviest kernels of one ``unit``."""
     busy_us = sum(us for us, _ in per.values())
     launches = sum(c for _, c in per.values())
-    wall_us = (w6 - w1) / 5 * 1e6
-    log("episode", f"profiled TTI: wall {wall_us / 1e3:.3f} ms under the "
+    log(phase, f"profiled {unit}: wall {wall_us / 1e3:.3f} ms under the "
         f"profiler, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f} %), idle "
         f"{100 * (1 - busy_us / wall_us):.1f} %, {launches:.0f} kernel "
-        f"launches per TTI")
+        f"launches per {unit}")
     for name, (us, cnt) in sorted(per.items(), key=lambda kv: -kv[1][0])[:top]:
-        log("episode", f"  {us:9.1f} us/TTI  x{cnt:4.0f}  {name[:90]}")
+        log(phase, f"  {us:9.1f} us/{unit}  x{cnt:4.0f}  {name[:90]}")
+
+
+def device_breakdown(fns, static, state, draws):
+    """Per-TTI device busy time, kernel launches and the heaviest kernels:
+    a rollout of 6 TTIs minus a rollout of 1, which cancels the set-up (the
+    full-width RadioState init)."""
+    w1, k1 = profiled(lambda: fns.rollout(static, state, 1, draws))
+    w6, k6 = profiled(lambda: fns.rollout(static, state, 6, draws))
+    per = {name: ((us - k1.get(name, (0.0, 0))[0]) / 5,
+                  (cnt - k1.get(name, (0.0, 0))[1]) / 5)
+           for name, (us, cnt) in k6.items()}
+    log_breakdown("episode", "TTI", (w6 - w1) / 5 * 1e6, per)
 
 
 def phase_episode():
@@ -328,15 +443,16 @@ def phase_episode():
         f"{time.perf_counter() - t0:.2f} s")
     draws = Draws(3, "cuda")
     # -- the main path: counts to 0 just before, read just after ----------
-    fk.fused_sinr_accumulate.launches = 0
     torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     out_state, tput = fns.rollout(static, state, n_tti, draws)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fk.fused_sinr_accumulate.launches
-    log("episode", f"main path: fused_sinr launches {launches} over "
-        f"{n_tti} TTIs; rollout incl. RadioState init {wall:.3f} s")
+    counts = launch_counts()
+    launches = counts["fused_sinr"]
+    log("episode", f"main path: launches {counts} over {n_tti} TTIs; "
+        f"rollout incl. RadioState init {wall:.3f} s")
     if launches != n_tti:
         raise AssertionError(f"expected {n_tti} kernel launches, got "
                              f"{launches}")
@@ -373,12 +489,117 @@ def phase_episode():
     return launches
 
 
+def env_step_ms(env, state, action, fairness_p=None):
+    """One env step timed on the host clock, synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = env.step(state, action, fairness_p)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def leaves_equal(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_env():
+    """CrrmEnv on dense_urban_twin at 100 000 UEs, with telemetry."""
+    from repro_torch.env import CrrmEnv
+    from repro_torch.obs import format_summary, summarize
+    kw = dict(scenario="dense_urban_twin",
+              scenario_overrides={"n_ues": 100_000}, tti_per_step=5,
+              episode_tti=10)
+    t0 = time.perf_counter()
+    env = CrrmEnv(telemetry=True, **kw)
+    torch.cuda.synchronize()
+    log("env", f"dense_urban_twin at 100000 UEs x {env.n_cells} cells: "
+        f"set-up {time.perf_counter() - t0:.2f} s")
+    act = env.uniform_action()
+    # -- the env path: counts to 0 just before, read just after -----------
+    torch.cuda.synchronize()
+    zero_counts()
+    state, _ = env.reset(0)
+    step_ms, telems = [], []
+    done = False
+    while not done:
+        (state, obs, reward, done, info), ms = env_step_ms(env, state, act)
+        done = bool(done)
+        step_ms.append(ms)
+        telems.append(info["telemetry"])
+    state_f, _ = env.reset(1)
+    (_, obs_f, reward_f, _, info_f), ms_f = env_step_ms(env, state_f, act,
+                                                        fairness_p=0.2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log("env", f"path: launches {counts}; ms per env step (5 TTIs) "
+        + ", ".join(f"{ms:.3f}" for ms in step_ms)
+        + f"; with fairness_p=0.2 {ms_f:.3f}; reward {float(reward):.4f}, "
+        f"with fairness_p {float(reward_f):.4f}")
+    if not (torch.isfinite(obs.tput).all() and obs.tput.shape == (100_000,)
+            and len(step_ms) == 2):
+        raise AssertionError("env: non-finite or misshapen observation")
+    from repro_torch.obs.telemetry import Telemetry
+    stacked = Telemetry(*(None if v[0] is None else torch.cat(v)
+                          for v in zip(*telems)))
+    log("env", "KPIs over the episode:\n" + format_summary(
+        summarize(stacked, tti_s=env.params.tti_s)))
+    if int(stacked.dirty_rows[0]) != round(0.1 * env.n_ues):
+        raise AssertionError("env: dirty rows are not 10 % of the UEs")
+    wall, per = profiled(lambda: env.step(env.reset(0)[0], act))
+    log_breakdown("env", "step", wall * 1e6, per)
+
+    # -- equalities, in deterministic mode (index_add_ in a fixed order) --
+    del env
+    torch.use_deterministic_algorithms(True)
+    try:
+        env = CrrmEnv(telemetry=True, **kw)
+        env_off = CrrmEnv(telemetry=False, **kw)
+        runs = []
+        for e in (env, env_off, env):
+            s, _ = e.reset(0)
+            out = e.step(s, act)
+            runs.append(out)
+        (s_on, o_on, *_, i_on), (s_off, o_off, *_), (s_on2, *_, i_on2) = runs
+        if not (torch.equal(o_on.tput, o_off.tput)
+                and leaves_equal(s_on, s_off)):
+            raise AssertionError("env: telemetry changed the trajectory")
+        if not leaves_equal(i_on["telemetry"], i_on2["telemetry"]):
+            raise AssertionError("env: two resets of one seed differ")
+        s, _ = env.reset(0)
+        s = env.step(s, act)[0]
+        s_ar, _, _, done, _ = env.step_autoreset(s, act, reset_seed=5)
+        fresh, _ = env.reset(5)
+        if not (bool(done) and leaves_equal(s_ar, fresh)):
+            raise AssertionError("env: step_autoreset did not restart")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("env", "telemetry on/off bit-equal; two resets of one seed give "
+        "equal telemetry; step_autoreset restarts at done")
+    del env, env_off, runs
+    env_r = CrrmEnv(resample_topology=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_r, _ = env_r.reset(3)
+    torch.cuda.synchronize()
+    ms_r = (time.perf_counter() - t0) * 1e3
+    if not (torch.isfinite(state_r.static.se).all()
+            and state_r.ep.U.shape == (100_000, 3)):
+        raise AssertionError("env: bad resampled reset")
+    log("env", f"resample_topology reset at 100000 UEs: {ms_r:.3f} ms")
+    del env_r, state_r
+    torch.cuda.empty_cache()
+    return step_ms
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     rows = phase_kernel()
+    dist = phase_pairwise(smi)
     phase_forward()
     launches = phase_episode()
+    phase_env()
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",
@@ -387,7 +608,10 @@ def main():
         "launches": launches, "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "pairwise_dist", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_dist.cu",
+        "replaces": "src/repro/kernels/pairwise_dist.py:41", **dist}]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ import torch
 
 from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
+from repro_torch.env.crrm_env import EnvObs, TopoEnvState
 from repro_torch.mac.engine import EpisodeState, EpisodeStatic
+from repro_torch.obs.telemetry import Telemetry
 from repro_torch.sim.radio import RadioState
 
 
@@ -31,7 +33,9 @@ def to_tensor(x, device):
         dtype = torch.int32
     else:
         dtype = torch.float32
-    return torch.as_tensor(np.ascontiguousarray(arr), device=device).to(dtype)
+    # a C-ordered copy: writable, and a 0-d scalar stays 0-d
+    # (np.ascontiguousarray would make it (1,))
+    return torch.as_tensor(np.array(arr, order="C"), device=device).to(dtype)
 
 
 def params_from_dict(fields: dict) -> CRRM_parameters:
@@ -72,7 +76,8 @@ def episode_static(data: dict, device) -> EpisodeStatic:
 
 def episode_state(data: dict, device) -> EpisodeState:
     """The port's ``EpisodeState`` from the reference's fields (its PRNG
-    ``key`` is ignored: the port draws through ``mac.engine.Draws``)."""
+    ``key`` is ignored: the port draws through ``mac.engine.Draws``; the
+    env's episode ``seed`` is taken where ``data`` has one)."""
     return _tuple(EpisodeState, {k: v for k, v in data.items() if k != "key"},
                   device)
 
@@ -81,3 +86,21 @@ def radio_state(data: dict, device) -> RadioState:
     """The port's ``RadioState`` from the reference's fields (None stays
     None)."""
     return _tuple(RadioState, data, device)
+
+
+def telemetry(data: dict, device) -> Telemetry:
+    """The port's ``Telemetry`` from the reference's fields (None stays
+    None)."""
+    return _tuple(Telemetry, data, device)
+
+
+def env_obs(data: dict, device) -> EnvObs:
+    """The port's ``EnvObs`` from the reference's ``tput``/``backlog``."""
+    return _tuple(EnvObs, data, device)
+
+
+def topo_env_state(data: dict, device) -> TopoEnvState:
+    """The port's ``TopoEnvState`` from the reference's ``ep`` and
+    ``static`` field dicts."""
+    return TopoEnvState(ep=episode_state(data["ep"], device),
+                        static=episode_static(data["static"], device))

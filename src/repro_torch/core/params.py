@@ -1,8 +1,9 @@
 """CRRM_parameters -- the single configuration object for a simulation.
 
 A copy of ``repro.core.params``: the same fields, defaults, validation and
-derived properties.  ``faults`` is accepted for field parity but must stay
-``None``: the cell fault process belongs to a later slice of the port.
+derived properties.  ``faults`` takes a ``sim.faults.FaultConfig`` and is
+validated as in the reference; running the fault process belongs to a
+later slice of the port, so ``CRRM`` refuses parameters that set it.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from repro_torch import not_in_slice
+from repro_torch.sim.faults import FaultConfig
 
 BOLTZMANN = 1.380649e-23
 T0_KELVIN = 290.0
@@ -81,7 +82,8 @@ class CRRM_parameters:
     mobility_move_frac: Optional[float] = None
     #: "dense" | "incremental" radio chain inside the episode engine
     radio_mode: str = "dense"
-    #: cell fault process; must be None in this port
+    #: cell fault process (a ``sim.faults.FaultConfig``); CRRM refuses it
+    #: until the faults slice
     faults: Optional[Any] = None
     ho_enabled: bool = False
     ho_hysteresis_db: float = 3.0          # A3 entry margin over serving RSRP
@@ -135,7 +137,24 @@ class CRRM_parameters:
                 f"radio_mode must be 'dense' or 'incremental'; "
                 f"got {self.radio_mode!r}")
         if self.faults is not None:
-            raise not_in_slice("the cell fault process (faults=)", "faults")
+            if not isinstance(self.faults, FaultConfig):
+                raise ValueError(
+                    f"faults must be a sim.faults.FaultConfig (or None); "
+                    f"got {type(self.faults).__name__}")
+            f = self.faults
+            if f.outage_rate_hz < 0.0 or f.sleep_rate_hz < 0.0:
+                raise ValueError("fault rates must be >= 0")
+            if f.mean_outage_s <= 0.0 or f.mean_sleep_s <= 0.0:
+                raise ValueError("fault dwell means must be > 0")
+            for p in (f.outage_rate_hz * self.tti_s,
+                      f.sleep_rate_hz * self.tti_s,
+                      self.tti_s / f.mean_outage_s,
+                      self.tti_s / f.mean_sleep_s):
+                if p > 1.0:
+                    raise ValueError(
+                        "fault transition probability exceeds 1 per TTI: "
+                        "lower the rate or raise the dwell mean "
+                        f"(tti_s={self.tti_s})")
         if self.ho_hysteresis_db < 0.0:
             raise ValueError("ho_hysteresis_db must be >= 0")
         if self.ho_ttt_tti < 1:

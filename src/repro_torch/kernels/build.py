@@ -42,24 +42,43 @@ def nvcc_path() -> str:
     return found
 
 
-def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of this source exists."""
+def _paths(name: str):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    if out.exists():
-        return BuildInfo(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or nothing
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for every name whose library does not
+    exist yet, one ``nvcc`` each, all started together; returns
+    ``{name: BuildInfo}``."""
+    started, infos = {}, {}
+    for name in names:
+        src, out = _paths(name)
+        if out.exists():
+            infos[name] = BuildInfo(out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started[name] = (src, out, tmp, proc, time.perf_counter())
+    done = {name: proc.communicate() + (time.perf_counter() - t0,)
+            for name, (_, _, _, proc, t0) in started.items()}
+    for name, (src, out, tmp, proc, _) in started.items():
+        stdout, stderr, seconds = done[name]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit "
+                               f"{proc.returncode}):\n{stdout}\n{stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+        infos[name] = BuildInfo(out, seconds, stdout + stderr)
+    return infos
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` unless a library of this source exists."""
+    return build_all([name])[name]
 
 
 def load(name: str):
@@ -69,3 +88,12 @@ def load(name: str):
         info = build(name)
         _LIBS[name] = (ctypes.CDLL(str(info.path)), info)
     return _LIBS[name]
+
+
+def load_all() -> dict:
+    """Build every source of ``csrc/`` at once and load each library:
+    ``{name: (library, BuildInfo)}``."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    for name, info in build_all([n for n in names if n not in _LIBS]).items():
+        _LIBS[name] = (ctypes.CDLL(str(info.path)), info)
+    return {name: _LIBS[name] for name in names}

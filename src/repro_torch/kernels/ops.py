@@ -1,13 +1,22 @@
-"""Public wrappers over the port's kernels: the fused SINR pipeline.
+"""Public wrappers over the port's kernels: pairwise distances and the
+fused SINR pipeline.
 
-The counterpart of ``repro.kernels.ops``.  The CUDA kernel masks ragged
-edges itself, so unlike the TPU wrapper nothing is padded here.
+The counterpart of ``repro.kernels.ops``.  The CUDA kernels mask ragged
+edges themselves, so unlike the TPU wrappers nothing is padded here and
+there are no tile arguments.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import fused_sinr as _fused
+from repro_torch.kernels import pairwise_dist as _dist
+
+
+def pairwise_dist(U, C):
+    """(d2d, d3d): the (N, M) 2-D and 3-D distances of UE rows ``U`` (N, 3)
+    and cells ``C`` (M, 3).  CUDA tensors launch the kernel."""
+    return _dist.pairwise_dist(U, C)
 
 
 def fused_sinr(U, C, Pw, *, pathgain_fn, noise_w: float, boresight=None,

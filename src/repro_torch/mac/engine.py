@@ -14,9 +14,11 @@ engine the JAX reference's own draws instead.
 
 Covered: dense and incremental radio modes (``inc_backend`` ``None`` /
 ``"torch"`` / ``"fused"`` / ``"auto"``), static and per-TTI fading, walk
-and window mobility, rr / max_cqi / pf, stop-and-wait HARQ and HARQ-lite,
-A3 handover.  Mesh sharding, churn, faults, the relaxed (differentiable)
-chain and telemetry wait for later slices and raise ``NotImplementedError``.
+and window mobility, rr / max_cqi / pf with a per-call ``fairness_p``
+override, stop-and-wait HARQ and HARQ-lite, A3 handover, and per-TTI KPI
+telemetry (``repro_torch.obs.telemetry``).  Mesh sharding, churn, faults
+and the relaxed (differentiable) chain wait for later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch
 
 from repro_torch import not_in_slice
 from repro_torch.mac import scheduler as mac_sched
-from repro_torch.sim import mobility, radio
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.sim import deploy, mobility, radio
 
 # stream ids of the per-TTI draws (the order of radio.tti_keys)
 MOBILITY, FADING, TRAFFIC, HARQ = range(4)
@@ -45,6 +48,9 @@ class EpisodeState(NamedTuple):
     serving: Any     # (n_ues,) i32 serving-cell index (A3 carried state)
     ttt: Any         # (n_ues,) i32 A3 time-to-trigger counters
     t: Any           # i32 scalar: TTI index (drives the draws)
+    #: int64 scalar: the episode seed of ``repro_torch.env.CrrmEnv`` (the
+    #: counterpart of the reference's PRNG ``key``); None outside the env
+    seed: Any = None
 
 
 class EpisodeStatic(NamedTuple):
@@ -60,12 +66,28 @@ class EpisodeStatic(NamedTuple):
 
 
 class EpisodeFns(NamedTuple):
-    """``step(static, state, draws, action=None) -> (state, tput)`` and
-    ``rollout(static, state, n_tti, draws, action=None) -> (state, tput)``
-    with ``tput`` stacked to (n_tti, n_ues)."""
+    """``step(static, state, draws, action=None, fairness_p=None) ->
+    (state, tput)`` and ``rollout(static, state, n_tti, draws, action=None,
+    fairness_p=None) -> (state, tput)`` with ``tput`` stacked to
+    (n_tti, n_ues).  Built with ``telemetry=True`` both return a third
+    value, the TTI's :class:`~repro_torch.obs.telemetry.Telemetry` (stacked
+    to (n_tti, ...) by ``rollout``)."""
 
     step: Any
     rollout: Any
+
+
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    """The splitmix64 finaliser, a bijection of 64-bit integers.  A CPU
+    ``torch.Generator`` (mt19937) keeps only the low 32 bits of its seed,
+    so the (episode seed, stream, TTI) key is mixed into all 64 first."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
 
 
 class Draws:
@@ -73,18 +95,33 @@ class Draws:
 
     Each (stream, absolute TTI) pair gets its own ``torch.Generator`` on
     ``device``, seeded from ``seed``, so any TTI is reproducible on its own
-    (as the reference's ``fold_in(key, 4 * t + i)`` lineage is).  A
-    subclass may replay other draws by overriding the methods.
+    (as the reference's ``fold_in(key, 4 * t + i)`` lineage is).  The
+    topology and fading of a resampled env reset come from two generators
+    of their own, apart from every per-TTI stream (the counterpart of
+    ``radio.reset_keys``).  A subclass may replay other draws by overriding
+    the methods.
     """
 
     def __init__(self, seed: int, device):
         self.seed = int(seed)
         self.device = torch.device(device)
 
-    def generator(self, stream: int, t: int) -> torch.Generator:
+    def _seeded(self, offset: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
-        g.manual_seed(((self.seed & 0x7FFFFFFF) << 32) + 4 * int(t) + stream)
+        g.manual_seed(_splitmix64(((self.seed & 0x7FFFFFFF) << 32) + offset))
         return g
+
+    def generator(self, stream: int, t: int) -> torch.Generator:
+        return self._seeded(4 * int(t) + stream)
+
+    def topology(self, n, extent_m, z):
+        """(n, 3) UE positions of a resampled reset (``deploy.ppp_points``)."""
+        return deploy.ppp_points(self._seeded(1 << 31), n, extent_m, z=z)
+
+    def topology_fading(self, cfg, n_ues, n_cells):
+        """The fading draw of a resampled reset (``radio.draw_fading``)."""
+        return radio.draw_fading(cfg, self._seeded((1 << 31) + 1), n_ues,
+                                 n_cells)
 
     def walk(self, t, n, step_m):
         """(n, 2) every-UE random-walk displacements."""
@@ -152,8 +189,8 @@ def stationary_served_tput(params, n_cells: int, se, cqi, a, backlog):
     return (bits / p.tti_s).sum(dim=1)
 
 
-_LATER = {"mesh": "mesh", "cell_axis": "mesh", "telemetry": "telemetry",
-          "churn": "churn", "relax": "RL", "faults": "faults"}
+_LATER = {"mesh": "mesh", "cell_axis": "mesh", "churn": "churn",
+          "relax": "RL", "faults": "faults"}
 
 
 def _reject_later(**kw):
@@ -182,9 +219,17 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     raises where the kernel cannot express the regime (handover tables,
     non-stock sector patterns), and ``"auto"`` is ``"fused"`` exactly when
     it can.
+
+    ``telemetry=True`` adds a per-TTI
+    :class:`~repro_torch.obs.telemetry.Telemetry` to both functions'
+    returns; it draws nothing and touches no state, so the trajectory is
+    bit-identical either way.  Both functions take ``fairness_p=None``: a
+    scalar overriding ``params.fairness_p`` in the PF weights for that
+    call, its alpha-fair exponent computed in float32 as the reference
+    computes a traced override.
     """
-    _reject_later(mesh=mesh, cell_axis=cell_axis, telemetry=telemetry,
-                  churn=churn, relax=relax, faults=faults)
+    _reject_later(mesh=mesh, cell_axis=cell_axis, churn=churn, relax=relax,
+                  faults=faults)
     p = params
     cfg = radio_cfg
     tti_s, beta = p.tti_s, p.pf_ewma
@@ -253,21 +298,25 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         return draws.walk(t, n_ues, mobility_step_m), None
 
     def inc_channel(static, rs, U, P, draws, t, fad):
-        """One incremental TTI of the radio chain: move, patch, read."""
+        """One incremental TTI of the radio chain: move, patch, read.
+        Returns ``(U, rs, n_dirty)``: the number of recomputed rows as an
+        int32 scalar tensor, or the int 0 when nothing moves."""
+        n_dirty = 0
         if mobility_step_m is not None:
             d, start = walk_displacements(draws, t, U)
             U = mobility.apply_walk(U, d, p.extent_m)
             if start is None:
                 idx = torch.arange(n_ues, dtype=torch.int32, device=U.device)
+                n_dirty = n_ues
             else:
-                idx, _ = radio.window_indices(start, n_move, n_ues)
+                idx, n_dirty = radio.window_indices(start, n_move, n_ues)
             if inc_fused:
                 rs = radio.radio_update_rows_fused(
                     cfg, rs, U, static.C, static.bore, fad, P, idx)
             else:
                 rs = radio.radio_update_rows(cfg, rs, U, static.C,
                                              static.bore, fad, P, idx)
-        return U, rs
+        return U, rs, n_dirty
 
     def sinr_chain(R, a):
         gamma, _, _ = radio.sinr(R, a, noise_w)
@@ -277,18 +326,20 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     def gather_serving(se_all, cqi_all, a):
         return radio.take_cell(se_all, a), radio.take_cell(cqi_all, a)
 
-    def allocate(se, cqi, a, buf, avg, cursor, harq_pending):
+    def allocate(se, cqi, a, buf, avg, cursor, harq_pending, fair):
         demand = (buf[:, None] > 0.0) | harq_pending[:, None]
         active = demand & (se > 0.0)
-        log_w = mac_sched.pf_log_weights_ewma(rb_bw * se, avg[:, None],
-                                              p.fairness_p)
+        fp = p.fairness_p if fair is None else fair
+        log_w = mac_sched.pf_log_weights_ewma(rb_bw * se, avg[:, None], fp)
         return mac_sched.allocate(policy, active, cqi, a, n_cells, rb_chunk,
                                   cursor, log_w)
 
     def harq_step(draws, t, tb_new, hbits, hretx, granted):
         """One TTI of every UE's stop-and-wait process: pending UEs
         retransmit their stored TB when granted; fresh TBs enter the
-        machine on failure and drop after ``max_retx`` retransmissions."""
+        machine on failure and drop after ``max_retx`` retransmissions.
+        The fourth return is the TTI's ``(acks, nacks, retx, dropped_bits)``
+        telemetry tuple (None unless telemetry is on)."""
         pending = hbits > 0.0
         tb = torch.where(pending, hbits, tb_new)
         attempting = granted & (tb > 0.0)
@@ -300,9 +351,15 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         n_fail = attempt + 1
         keep = (fail & (n_fail <= max_retx)) | (pending & ~granted)
         delivered = torch.where(ok, tb, 0.0)
+        stats = None
+        if telemetry:
+            i32 = torch.int32
+            stats = (ok.sum().to(i32), fail.sum().to(i32),
+                     (pending & attempting).sum().to(i32),
+                     torch.where(fail & (n_fail > max_retx), tb, 0.0).sum())
         hbits = torch.where(keep, tb, 0.0)
         hretx = torch.where(keep, torch.where(fail, n_fail, hretx), 0)
-        return delivered, hbits, hretx.to(torch.int32)
+        return delivered, hbits, hretx.to(torch.int32), stats
 
     def prepare(static, U, power_act: bool):
         """Loop-invariant constants of the static-geometry regime."""
@@ -328,20 +385,25 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                     h["se_all"], h["cqi_all"] = radio.se_chain(cfg, gamma_all)
         return h
 
-    def tti_step(h, static, state, action, rs, draws, t: int):
+    def tti_step(h, static, state, action, rs, draws, t: int, fair):
         """One TTI: (hoisted, static, state, action, radio-state) ->
-        (state, tput, radio-state).  ``t`` is the TTI as a Python int."""
+        (state, tput, radio-state, telemetry).  ``t`` is the TTI as a
+        Python int, ``fair`` the fairness override (None = the params');
+        telemetry is None unless built with ``telemetry=True``."""
         power_act = action is not None
         U, buf, avg = state.U, state.backlog, state.pf_avg
         cursor, hbits = state.rr_cursor, state.harq_bits
         hretx = state.harq_retx
         a_srv, ttt = state.serving, state.ttt
+        prev_srv = a_srv
+        n_dirty = 0 if incremental else None
         P = action if power_act else static.P
         # -- channel: incremental state, per-TTI recompute, or constants ---
         r = rs if rs is not None else h.get("rs")
         if r is not None:
             if rs is not None:              # carried: mobility dirties rows
-                U, r = inc_channel(static, r, U, P, draws, t, inc_fad(static))
+                U, r, n_dirty = inc_channel(static, r, U, P, draws, t,
+                                            inc_fad(static))
                 rs = r
             if ho_on:
                 a_srv, ttt = a3_handover(a_srv, ttt, r.meas, hyst_db, ttt_tti)
@@ -393,13 +455,14 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             buf = buf + draws.traffic(t, traffic_step)
         harq_pending = ((hbits > 0.0) if harq_on
                         else torch.zeros_like(buf, dtype=torch.bool))
-        alloc = allocate(se, cqi, a_use, buf, avg, cursor, harq_pending)
+        alloc = allocate(se, cqi, a_use, buf, avg, cursor, harq_pending, fair)
         drainable = torch.where(harq_pending, 0.0, buf)
         tb_new = mac_sched.served_bits(alloc, se, drainable, rb_bw,
                                        tti_s).sum(dim=1)
+        hstats = None
         if harq_on:
-            bits, hbits, hretx = harq_step(draws, t, tb_new, hbits, hretx,
-                                           alloc.sum(dim=1) > 0.0)
+            bits, hbits, hretx, hstats = harq_step(
+                draws, t, tb_new, hbits, hretx, alloc.sum(dim=1) > 0.0)
         elif bler > 0.0:   # HARQ-lite: lost blocks stay queued -> retx
             bits = tb_new * draws.harq_bernoulli(t, 1.0 - bler, n_ues).to(
                 tb_new.dtype)
@@ -410,8 +473,30 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         tput = bits / tti_s
         avg = (1.0 - beta) * avg + beta * tput
         state = EpisodeState(U, buf, avg, cursor + rb_chunk, hbits, hretx,
-                             a_srv, ttt, state.t + 1)
-        return state, tput, rs
+                             a_srv, ttt, state.t + 1, state.seed)
+        telem = None
+        if telemetry:
+            telem = step_telemetry(a_use, alloc, bits, tb_new, tput, buf,
+                                   hstats, a_srv, prev_srv, n_dirty)
+        return state, tput, rs, telem
+
+    def step_telemetry(a_use, alloc, bits, tb_new, tput, buf, hstats, a_srv,
+                       prev_srv, n_dirty):
+        """The TTI's KPIs, only from values the step computed."""
+        i32, dev = torch.int32, buf.device
+        zero = lambda: torch.zeros((), dtype=i32, device=dev)
+        if hstats is None:
+            acks = (bits > 0.0).sum().to(i32)
+            nacks = (((tb_new > 0.0) & (bits == 0.0)).sum().to(i32)
+                     if bler > 0.0 else zero())
+            hstats = (acks, nacks, zero(),
+                      torch.zeros((), dtype=torch.float32, device=dev))
+        ho_fired = (a_srv != prev_srv).sum().to(i32) if ho_on else zero()
+        if isinstance(n_dirty, int):
+            n_dirty = torch.full((), n_dirty, dtype=i32, device=dev)
+        return obs_telemetry.tti_telemetry(n_cells, n_ues, a_use, alloc, bits,
+                                           tput, buf, hstats, ho_fired,
+                                           n_dirty)
 
     def setup(static, state, action):
         """(hoisted constants, carried RadioState) for one specialisation."""
@@ -424,19 +509,32 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 rs0 = init_rs(static, state.U, action)
         return h, rs0
 
-    def step(static, state, draws, action=None):
-        h, rs0 = setup(static, state, action)
-        state, tput, _ = tti_step(h, static, state, action, rs0, draws,
-                                  int(state.t))
-        return state, tput
+    def fairness(fairness_p, device):
+        """The override as a float32 scalar tensor (None stays None)."""
+        if fairness_p is None:
+            return None
+        return torch.as_tensor(fairness_p, dtype=torch.float32,
+                               device=device)
 
-    def rollout(static, state, n_tti, draws, action=None):
+    def step(static, state, draws, action=None, fairness_p=None):
+        h, rs0 = setup(static, state, action)
+        fair = fairness(fairness_p, state.backlog.device)
+        state, tput, _, telem = tti_step(h, static, state, action, rs0, draws,
+                                         int(state.t), fair)
+        return (state, tput, telem) if telemetry else (state, tput)
+
+    def rollout(static, state, n_tti, draws, action=None, fairness_p=None):
         h, rs = setup(static, state, action)
+        fair = fairness(fairness_p, state.backlog.device)
         t0 = int(state.t)          # the one host read, before the loop
-        tputs = []
+        tputs, telems = [], []
         for t in range(t0, t0 + n_tti):
-            state, tput, rs = tti_step(h, static, state, action, rs, draws, t)
+            state, tput, rs, telem = tti_step(h, static, state, action, rs,
+                                              draws, t, fair)
             tputs.append(tput)
+            telems.append(telem)
+        if telemetry:
+            return state, torch.stack(tputs), obs_telemetry.stack(telems)
         return state, torch.stack(tputs)
 
     return EpisodeFns(step=step, rollout=rollout)
@@ -444,7 +542,8 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
 
 def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
                     use_harq=None, radio_mode=None, mobility_move_frac=None,
-                    inc_backend=None, **later) -> EpisodeFns:
+                    inc_backend=None, telemetry: bool = False,
+                    **later) -> EpisodeFns:
     """The :func:`make_episode_fns` bundle for ``sim``, cached on it.
 
     ``mobility_step_m=None`` falls back to ``params.mobility_step_m``
@@ -461,7 +560,7 @@ def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
     if mobility_move_frac is None:
         mobility_move_frac = sim.params.mobility_move_frac
     cache_key = (mobility_step_m, per_tti_fading, use_harq, radio_mode,
-                 mobility_move_frac, inc_backend)
+                 mobility_move_frac, inc_backend, bool(telemetry))
     cache = sim.__dict__.setdefault("_episode_fns_cache", {})
     if cache_key not in cache:
         cache[cache_key] = make_episode_fns(
@@ -469,28 +568,30 @@ def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
             sim._traffic_step, mobility_step_m=mobility_step_m,
             per_tti_fading=per_tti_fading, use_harq=use_harq,
             radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
-            inc_backend=inc_backend)
+            inc_backend=inc_backend, telemetry=bool(telemetry))
     return cache[cache_key]
 
 
 def run_episode(sim, n_tti: int, draws=None, mobility_step_m=None,
                 per_tti_fading: bool = False, sync_state: bool = True,
                 use_harq=None, radio_mode=None, mobility_move_frac=None,
-                inc_backend=None, **later):
+                inc_backend=None, telemetry: bool = False, **later):
     """Run ``n_tti`` TTIs; returns (n_tti, n_ues) delivered throughput
-    (bits/s).  ``draws`` defaults to ``Draws(params.seed, sim.device)``;
-    ``sync_state`` writes the final state back into the graph."""
+    (bits/s), or ``(tput, telem)`` with ``telemetry=True``.  ``draws``
+    defaults to ``Draws(params.seed, sim.device)``; ``sync_state`` writes
+    the final state back into the graph."""
     fns = episode_fns_for(sim, mobility_step_m=mobility_step_m,
                           per_tti_fading=per_tti_fading, use_harq=use_harq,
                           radio_mode=radio_mode,
                           mobility_move_frac=mobility_move_frac,
-                          inc_backend=inc_backend, **later)
+                          inc_backend=inc_backend, telemetry=telemetry,
+                          **later)
     if draws is None:
         draws = Draws(sim.params.seed, sim.device)
-    state, tput = fns.rollout(sim.episode_static(), sim.init_episode_state(),
-                              n_tti, draws)
+    state, tput, *telem = fns.rollout(sim.episode_static(),
+                                      sim.init_episode_state(), n_tti, draws)
     if mobility_step_m is None:
         mobility_step_m = sim.params.mobility_step_m
     if sync_state:
         sim.sync_episode_state(state, positions=bool(mobility_step_m))
-    return tput
+    return (tput, telem[0]) if telemetry else tput

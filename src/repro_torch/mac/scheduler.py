@@ -99,8 +99,17 @@ def pf_log_weights_stationary(se, fairness_p):
     return -fairness_p * torch.log(torch.clamp(se, min=1e-12))
 
 
-def pf_alpha(fairness_p) -> float:
-    """The alpha-fair exponent (1+p)/(1-p), capped, rounded in float32."""
+def pf_alpha(fairness_p):
+    """The alpha-fair exponent (1+p)/(1-p), capped, rounded in float32.
+
+    A Python float (the params' constant) is rounded once per operand, as
+    the reference folds a baked constant; a tensor (a per-call override) is
+    computed in float32 arithmetic, as the reference computes a traced one.
+    """
+    if isinstance(fairness_p, torch.Tensor):
+        fp = fairness_p.to(torch.float32)
+        return torch.clamp((1.0 + fp) / torch.clamp(1.0 - fp, min=1e-6),
+                           max=_ALPHA_MAX)
     f32 = np.float32
     return float(np.minimum(f32(1.0 + fairness_p)
                             / np.maximum(f32(1.0 - fairness_p), f32(1e-6)),

@@ -1,0 +1,137 @@
+"""Per-TTI KPI telemetry: the :class:`Telemetry` tuple and its reducers.
+
+The port of ``repro.obs.telemetry`` on one device.  The engine computes one
+:class:`Telemetry` per TTI (:func:`tti_telemetry`, called from
+``mac.engine``'s TTI step when built with ``telemetry=True``) and
+``rollout`` stacks each leaf to ``(n_tti, ...)``.  KPIs are computed only
+from values the step already produced: no draws, no state, so the
+trajectory is bit-identical with telemetry on or off.
+
+Optional leaves are ``None`` where a regime cannot produce them:
+``dirty_rows`` exists only in ``radio_mode="incremental"``; ``active_ues``,
+``cells_down`` and ``reattach_events`` belong to churn and faults, later
+slices of the port, and stay ``None``.  The mesh reductions (``ue_axes``)
+wait for the mesh slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import not_in_slice
+from repro_torch.mac import segments
+
+
+class Telemetry(NamedTuple):
+    """Per-TTI KPIs of one engine step (stacked to (n_tti, ...) by
+    ``rollout``).  Cell-indexed tensors are aggregated over the *serving*
+    attachment of the TTI; scalar counters are network-wide totals."""
+
+    served_bits: Any    # (n_cells,) f32 bits delivered per serving cell
+    granted_rb: Any     # (n_cells,) f32 resource blocks granted per cell
+    harq_acks: Any      # i32 transport blocks delivered this TTI
+    harq_nacks: Any     # i32 failed HARQ attempts this TTI
+    harq_retx: Any      # i32 retransmission attempts this TTI
+    dropped_bits: Any   # f32 TB bits dropped at harq_max_retx exhaustion
+    ho_events: Any      # i32 A3 handovers fired this TTI
+    buffer_bits: Any    # f32 total finite backlog after the TTI
+    jain: Any           # f32 Jain fairness of per-UE delivered throughput
+    dirty_rows: Any     # i32 radio rows recomputed | None (dense modes)
+    active_ues: Any = None       # i32 live UEs | None (churn: later slice)
+    cells_down: Any = None       # i32 cells in outage | None (faults)
+    reattach_events: Any = None  # i32 serving changes | None (faults)
+
+
+def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
+                  harq_stats, ho_events, n_dirty, ue_axes=None,
+                  active_count=None, cells_down=None,
+                  reattached=None) -> Telemetry:
+    """Assemble one TTI's :class:`Telemetry` from step intermediates.
+
+    Reads the serving attachment ``a``, the allocation matrix, the
+    delivered ``bits``/``tput`` and the post-drain ``backlog``;
+    ``harq_stats`` is ``(acks, nacks, retx, dropped_bits)``.  Jain's
+    fairness index over the per-UE delivered throughput is
+    ``(sum x)^2 / (n * sum x^2)``, 0.0 for an idle TTI.
+    """
+    if ue_axes is not None:
+        raise not_in_slice("tti_telemetry(ue_axes=...)", "mesh")
+    for name, value in (("active_count", active_count),
+                        ("cells_down", cells_down),
+                        ("reattached", reattached)):
+        if value is not None:
+            raise not_in_slice(f"tti_telemetry({name}=...)",
+                               "churn" if name == "active_count" else "faults")
+    acks, nacks, retx, dropped = harq_stats
+    served = segments.segment_sum(bits.to(torch.float32), a, n_cells)
+    granted = segments.segment_sum(alloc.sum(dim=-1).to(torch.float32), a,
+                                   n_cells)
+    occupancy = torch.where(torch.isfinite(backlog), backlog, 0.0).sum()
+    s = tput.sum()
+    ss = (tput * tput).sum()
+    jain = torch.where(ss > 0.0, s * s / (n_ues * ss), 0.0)
+    return Telemetry(served_bits=served, granted_rb=granted,
+                     harq_acks=acks, harq_nacks=nacks, harq_retx=retx,
+                     dropped_bits=dropped, ho_events=ho_events,
+                     buffer_bits=occupancy, jain=jain, dirty_rows=n_dirty)
+
+
+def stack(telems) -> Telemetry:
+    """Stack a sequence of per-TTI :class:`Telemetry` leaf by leaf to
+    ``(n_tti, ...)``; ``None`` leaves stay ``None``."""
+    return Telemetry(*(None if leaves[0] is None else torch.stack(leaves)
+                       for leaves in zip(*telems)))
+
+
+def _host(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def summarize(telem: Telemetry, tti_s: float | None = None) -> dict:
+    """Reduce a telemetry stack to a flat dict of python-float KPIs.
+
+    Accepts per-TTI stacks of any leading shape -- a rollout's
+    ``(n_tti, ...)`` or a single step -- and aggregates over all leading
+    axes.  ``tti_s`` converts the served-bits total into the busiest
+    cell's mean rate (Mbit/s).
+    """
+    t = Telemetry(*(_host(x) for x in telem))
+    n_tti = max(1, int(np.prod(t.jain.shape))) if t.jain.ndim else 1
+    attempts = float(t.harq_acks.sum() + t.harq_nacks.sum())
+    out = {
+        "served_mbits": float(t.served_bits.sum()) / 1e6,
+        "mean_cell_load_rb": float(t.granted_rb.mean()),
+        "harq_acks": float(t.harq_acks.sum()),
+        "harq_nacks": float(t.harq_nacks.sum()),
+        "harq_nack_rate": (float(t.harq_nacks.sum()) / attempts
+                           if attempts else 0.0),
+        "harq_retx": float(t.harq_retx.sum()),
+        "dropped_mbits": float(t.dropped_bits.sum()) / 1e6,
+        "ho_events": float(t.ho_events.sum()),
+        "mean_buffer_mbits": float(t.buffer_bits.mean()) / 1e6,
+        "mean_jain": float(t.jain.mean()),
+    }
+    if tti_s is not None:
+        busiest = t.served_bits.sum(axis=tuple(range(t.served_bits.ndim - 1)))
+        out["busiest_cell_mbps"] = float(busiest.max()) / (n_tti * tti_s) / 1e6
+    if t.dirty_rows is not None:
+        out["mean_dirty_rows"] = float(t.dirty_rows.mean())
+    if t.active_ues is not None:
+        out["mean_active_ues"] = float(t.active_ues.mean())
+    if t.cells_down is not None:
+        out["mean_cells_down"] = float(t.cells_down.mean())
+    if t.reattach_events is not None:
+        out["reattach_events"] = float(t.reattach_events.sum())
+    return out
+
+
+def format_summary(kpis: dict) -> str:
+    """One aligned line per KPI."""
+    width = max(len(k) for k in kpis)
+    return "\n".join(f"  {k:<{width}}  {v:,.3f}" for k, v in kpis.items())

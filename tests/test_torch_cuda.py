@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernel against its plain PyTorch version.
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions.
 
 These tests need a CUDA device and the CUDA toolkit: each one asks the
 ``cuda`` fixture, which skips on a host without a card.  They run on the
@@ -8,7 +9,9 @@ Contract (the fused kernel vs ``fused_sinr_accumulate_plain`` on the same
 card and inputs): ``total``/``w_best``/gamma to rtol 1e-4 (sum order and
 ulp differences of log10f/powf against PyTorch's kernels); attachment
 exact except on rows whose two best measurements differ by less than 1e-5
-relative in the plain version (counted; at most 1 % of the rows).
+relative in the plain version (counted; at most 1 % of the rows).  The
+pairwise-distance kernel vs ``pairwise_dist_plain``: rtol 1e-6 (the kernel
+rounds each product and sum as the plain version's separate kernels do).
 """
 import numpy as np
 import pytest
@@ -17,6 +20,8 @@ import torch
 from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.kernels import fused_sinr as fk
+from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_dist as pdk
 from repro_torch.mac.engine import Draws
 from repro_torch.sim import pathloss, radio
 
@@ -184,3 +189,37 @@ def test_engine_inc_fused_matches_torch_on_cuda(cuda):
         assert launched == (5 if be == "fused" else 0)
     np.testing.assert_allclose(out["fused"], out["torch"], rtol=1e-4,
                                atol=1.0)
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 3), (33, 257), (1000, 57),
+                                 (130, 2049), (64, 4100)])
+def test_pairwise_dist_matches_plain(cuda, n, m):
+    """Ragged shapes: row tiles of 64 and cell tiles of 2048 both cut."""
+    rng = np.random.default_rng(n + m)
+    U = torch.as_tensor(np.column_stack([
+        rng.uniform(0, 5000, (n, 2)), rng.uniform(1, 2.5, n)]).astype(
+            np.float32), device=cuda)
+    C = torch.as_tensor(np.column_stack([
+        rng.uniform(0, 5000, (m, 2)), np.full(m, 25.0)]).astype(np.float32),
+        device=cuda)
+    before = pdk.pairwise_dist.launches
+    d2, d3 = ops.pairwise_dist(U, C)
+    torch.cuda.synchronize()
+    assert pdk.pairwise_dist.launches == before + 1
+    p2, p3 = pdk.pairwise_dist_plain(U, C)
+    assert d2.shape == (n, m) and d2.is_cuda
+    torch.testing.assert_close(d2, p2, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(d3, p3, rtol=1e-6, atol=0.0)
+
+
+def test_pairwise_dist_rejects_wrong_inputs(cuda):
+    U = torch.zeros((4, 3), device=cuda)
+    C = torch.ones((2, 3), device=cuda)
+    with pytest.raises(TypeError):
+        pdk.pairwise_dist(U.double(), C)
+    with pytest.raises(ValueError):
+        pdk.pairwise_dist(U, C.cpu())
+    with pytest.raises(ValueError, match="at least one"):
+        pdk.pairwise_dist(U[:0], C)
+    with pytest.raises(ValueError, match="contiguous"):
+        pdk.pairwise_dist(U, torch.ones((3, 2), device=cuda).t())

@@ -23,91 +23,21 @@ import torch
 
 from repro.core.params import CRRM_parameters as JParams
 from repro.mac import engine as j_engine
-from repro.sim import mobility as j_mobility
-from repro.sim import radio as j_radio
 from repro.sim import scenarios
-from repro_torch import convert
 from repro_torch.kernels import fused_sinr as t_fused
 from repro_torch.mac import engine as t_engine
-from torch_parity import DEV, np_, pair
+from torch_parity import (RTOL_TPUT, ReplayDraws, carried, check_state,
+                          np_, pair, run_pair)
 
 N_TTI = 20
-RTOL_TPUT = 1e-4
-
-
-class ReplayDraws(t_engine.Draws):
-    """The reference's per-TTI draws, handed to the port as tensors."""
-
-    def __init__(self, key, ref_sim):
-        super().__init__(0, DEV)
-        self.key, self.ref = key, ref_sim
-
-    def keys(self, t):
-        return j_radio.tti_keys(self.key, t)
-
-    def walk(self, t, n, step_m):
-        d = j_mobility.walk_steps(self.keys(t)[0], n, step_m)
-        return torch.as_tensor(np_(d))
-
-    def window(self, t, n, n_move, step_m):
-        start, d = j_mobility.window_movers(self.keys(t)[0], n, n_move,
-                                           step_m)
-        return torch.tensor(int(start)), torch.as_tensor(np_(d))
-
-    def fading(self, t, cfg, n_ues, n_cells):
-        f = j_radio.draw_fading(self.ref.radio_config(), self.keys(t)[1],
-                                n_ues, n_cells)
-        return torch.as_tensor(np_(f))
-
-    def traffic(self, t, traffic_step):
-        return torch.as_tensor(np_(self.ref._traffic_step(self.keys(t)[2], t)))
-
-    def harq_uniform(self, t, n):
-        return torch.as_tensor(np_(jax.random.uniform(self.keys(t)[3], (n,))))
-
-    def harq_bernoulli(self, t, p, n):
-        return torch.as_tensor(np_(jax.random.bernoulli(self.keys(t)[3], p,
-                                                        (n,))))
-
-
-def carried(ref, key):
-    """The reference's static and initial state, and the port's copies."""
-    static, state = ref.episode_static(), ref.init_episode_state(key)
-    as_dict = lambda nt: {k: np_(v) for k, v in nt._asdict().items()
-                          if v is not None}
-    return (static, state, convert.episode_static(as_dict(static), DEV),
-            convert.episode_state(as_dict(state), DEV))
-
-
-def run_pair(params, n_tti=N_TTI, key=0, **kw):
-    ref, port = pair(params)
-    k = jax.random.PRNGKey(key)
-    static_j, state_j, static_t, state_t = carried(ref, k)
-    with jax.disable_jit(params.traffic_model != "full_buffer"):
-        s_j, tput_j = ref.episode_fns(**kw).rollout(static_j, state_j, n_tti)
-    tkw = dict(kw)
-    if tkw.get("inc_backend") == "xla":
-        tkw["inc_backend"] = "torch"
-    s_t, tput_t = port.episode_fns(**tkw).rollout(
-        static_t, state_t, n_tti, ReplayDraws(k, ref))
-    return (s_j, np_(tput_j)), (s_t, np_(tput_t))
 
 
 def check(ref_out, port_out):
-    (s_j, tput_j), (s_t, tput_t) = ref_out, port_out
+    (s_j, tput_j), (s_t, tput_t) = ref_out[:2], port_out[:2]
+    tput_j, tput_t = np_(tput_j), np_(tput_t)
     assert tput_t.dtype == np.float32 and tput_t.shape == tput_j.shape
     np.testing.assert_allclose(tput_t, tput_j, rtol=RTOL_TPUT, atol=1.0)
-    np.testing.assert_allclose(np_(s_t.U), np_(s_j.U), rtol=1e-6)
-    for f in ("serving", "ttt", "harq_retx", "rr_cursor", "t"):
-        got, want = np_(getattr(s_t, f)), np_(getattr(s_j, f))
-        assert got.dtype == np.int32, f
-        np.testing.assert_array_equal(got, want, err_msg=f)
-    np.testing.assert_allclose(np_(s_t.pf_avg), np_(s_j.pf_avg),
-                               rtol=RTOL_TPUT, atol=1.0)
-    np.testing.assert_allclose(np_(s_t.backlog), np_(s_j.backlog),
-                               rtol=RTOL_TPUT, atol=1.0)
-    np.testing.assert_allclose(np_(s_t.harq_bits), np_(s_j.harq_bits),
-                               rtol=RTOL_TPUT, atol=1.0)
+    check_state(s_t, s_j)
 
 
 BASE = dict(n_ues=48, n_cells=7, seed=2, pathloss_model_name="UMa",
@@ -168,7 +98,6 @@ def test_million_episode_config_incremental_matches_reference(inc_backend):
         before = t_fused.fused_sinr_accumulate.launches
         port = p.episode_fns(inc_backend="fused").rollout(
             static_t, state_t, N_TTI, ReplayDraws(k, r))
-        port = (port[0], np_(port[1]))
         assert t_fused.fused_sinr_accumulate.launches == before  # CPU: plain
     check(ref, port)
 

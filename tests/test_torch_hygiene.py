@@ -23,6 +23,18 @@ def port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_the_scan_covers_every_package_of_the_port():
+    scanned = {p.relative_to(PORT).parts[0] for p in port_files()
+               if PORT in p.parents}
+    assert {"core", "sim", "mac", "kernels", "obs", "env"} <= scanned
+    names = module_names()
+    for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
+              "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
+              "repro_torch.sim.faults", "repro_torch.kernels.pairwise_dist",
+              "repro_torch.kernels.ref"):
+        assert m in names, m
+
+
 def module_names():
     return sorted(
         ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)

@@ -8,13 +8,21 @@ where the reference's SINR lies within 1e-4 dB of a CQI threshold.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.core.crrm import CRRM as JCRRM
+from repro.env.crrm_env import CrrmEnv as JEnv
+from repro.sim import deploy as j_deploy
+from repro.sim import mobility as j_mobility
 from repro.sim import phy as j_phy
+from repro.sim import radio as j_radio
+from repro.sim import scenarios as j_scen
 from repro_torch import convert
+from repro_torch.env.crrm_env import CrrmEnv as TEnv
+from repro_torch.mac import engine as t_engine
 
 DEV = torch.device("cpu")
 
@@ -36,14 +44,18 @@ def fields_of(params):
     return d
 
 
-def pair(params):
-    """(reference CRRM, port CRRM) on the same roots."""
-    ref = JCRRM(params)
+def port_of(ref):
+    """The port CRRM on the roots of the reference CRRM ``ref``."""
     roots = {k: np_(getattr(ref, k)._data)
              for k in ("U", "C", "P", "boresight", "fading")}
     roots["buffer"] = np_(ref.buffer._data)
-    port = convert.crrm_from_reference(fields_of(params), roots, DEV)
-    return ref, port
+    return convert.crrm_from_reference(fields_of(ref.params), roots, DEV)
+
+
+def pair(params):
+    """(reference CRRM, port CRRM) on the same roots."""
+    ref = JCRRM(params)
+    return ref, port_of(ref)
 
 
 def near_tie_rows(meas_ref):
@@ -91,3 +103,176 @@ def assert_cqi(port, ref, gamma_ref):
     edge = near_threshold(gamma_ref)
     assert edge.mean() < 0.01, f"{edge.sum()} entries sit on a CQI step"
     np.testing.assert_array_equal(np_(port)[~edge], np_(ref)[~edge])
+
+
+class ReplayDraws(t_engine.Draws):
+    """The reference's per-TTI draws, handed to the port as tensors: on
+    ``radio.tti_keys(key, t)``, and for a resampled env reset on the
+    topology and fading keys of ``radio.reset_keys`` (``reset_keys``)."""
+
+    def __init__(self, key, ref_sim, reset_keys=None):
+        super().__init__(0, DEV)
+        self.key, self.ref, self.reset_keys = key, ref_sim, reset_keys
+
+    def keys(self, t):
+        return j_radio.tti_keys(self.key, t)
+
+    def walk(self, t, n, step_m):
+        d = j_mobility.walk_steps(self.keys(t)[0], n, step_m)
+        return torch.as_tensor(np_(d))
+
+    def window(self, t, n, n_move, step_m):
+        start, d = j_mobility.window_movers(self.keys(t)[0], n, n_move,
+                                           step_m)
+        return torch.tensor(int(start)), torch.as_tensor(np_(d))
+
+    def fading(self, t, cfg, n_ues, n_cells):
+        f = j_radio.draw_fading(self.ref.radio_config(), self.keys(t)[1],
+                                n_ues, n_cells)
+        return torch.as_tensor(np_(f))
+
+    def traffic(self, t, traffic_step):
+        return torch.as_tensor(np_(self.ref._traffic_step(self.keys(t)[2], t)))
+
+    def harq_uniform(self, t, n):
+        return torch.as_tensor(np_(jax.random.uniform(self.keys(t)[3], (n,))))
+
+    def harq_bernoulli(self, t, p, n):
+        return torch.as_tensor(np_(jax.random.bernoulli(self.keys(t)[3], p,
+                                                        (n,))))
+
+    def topology(self, n, extent_m, z):
+        return torch.as_tensor(np_(j_deploy.ppp_points(
+            self.reset_keys[0], n, extent_m, z=z)))
+
+    def topology_fading(self, cfg, n_ues, n_cells):
+        return torch.as_tensor(np_(j_radio.draw_fading(
+            self.ref.radio_config(), self.reset_keys[1], n_ues, n_cells)))
+
+
+def env_draws(ref_env):
+    """The port env's ``draws`` factory replaying the reference env
+    ``ref_env``: its reset seed ``s`` is the reference's
+    ``PRNGKey(s)``."""
+    def make(seed, device):
+        key = jax.random.PRNGKey(seed)
+        if ref_env.resample_topology:
+            k_topo, k_fad, k_ep = j_radio.reset_keys(key)
+            return ReplayDraws(k_ep, ref_env.sim, (k_topo, k_fad))
+        return ReplayDraws(key, ref_env.sim)
+    return make
+
+
+def carried(ref, key):
+    """The reference's static and initial state, and the port's copies."""
+    static, state = ref.episode_static(), ref.init_episode_state(key)
+    as_dict = lambda nt: {k: np_(v) for k, v in nt._asdict().items()
+                          if v is not None}
+    return (static, state, convert.episode_static(as_dict(static), DEV),
+            convert.episode_state(as_dict(state), DEV))
+
+
+RTOL_TPUT = 1e-4
+
+
+def check_state(s_t, s_j):
+    """A port ``EpisodeState`` against the reference's: positions to rtol
+    1e-6, integer state exact, throughput-like floats to rtol 1e-4 (sum
+    order of the per-cell PF shares and ulps of the radio chain; atol 1
+    bit/s for exact zeros)."""
+    np.testing.assert_allclose(np_(s_t.U), np_(s_j.U), rtol=1e-6)
+    for f in ("serving", "ttt", "harq_retx", "rr_cursor", "t"):
+        got, want = np_(getattr(s_t, f)), np_(getattr(s_j, f))
+        assert got.dtype == np.int32, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    for f in ("pf_avg", "backlog", "harq_bits"):
+        np.testing.assert_allclose(np_(getattr(s_t, f)),
+                                   np_(getattr(s_j, f)), rtol=RTOL_TPUT,
+                                   atol=1.0, err_msg=f)
+
+
+def check_telemetry(tel_t, tel_j):
+    """Integer KPIs exact, float KPIs to rtol 1e-4 (the per-cell segment
+    sums add in another order than XLA's scatter-add)."""
+    ints = ("harq_acks", "harq_nacks", "harq_retx", "ho_events",
+            "dirty_rows")
+    for f in tel_j._fields:
+        got, want = getattr(tel_t, f), getattr(tel_j, f)
+        if want is None:
+            assert got is None, f
+            continue
+        got, want = np_(got), np_(want)
+        assert got.shape == want.shape, f
+        if f in ints:
+            assert got.dtype == np.int32, f
+            np.testing.assert_array_equal(got, want, err_msg=f)
+        else:
+            assert got.dtype == np.float32, f
+            np.testing.assert_allclose(got, want, rtol=RTOL_TPUT,
+                                       atol=1e-3 if f in ("granted_rb", "jain")
+                                       else 1.0, err_msg=f)
+
+
+def run_pair(params, n_tti=20, key=0, fairness_p=None, **kw):
+    """Roll the reference and the port from the same carried state on the
+    reference's draws: ``(ref_out, port_out)``, each ``(state, tput)`` plus
+    the telemetry stack when ``telemetry=True`` is among ``kw``.  Under
+    bursty traffic the reference rolls out eagerly (see
+    tests/test_torch_engine.py).  ``fairness_p`` goes to the reference as a
+    float32 scalar, as a traced override."""
+    ref, port = pair(params)
+    k = jax.random.PRNGKey(key)
+    static_j, state_j, static_t, state_t = carried(ref, k)
+    fp_j = None if fairness_p is None else jnp.float32(fairness_p)
+    with jax.disable_jit(params.traffic_model != "full_buffer"):
+        out_j = ref.episode_fns(**kw).rollout(static_j, state_j, n_tti,
+                                              None, fp_j)
+    tkw = dict(kw)
+    if tkw.get("inc_backend") == "xla":
+        tkw["inc_backend"] = "torch"
+    out_t = port.episode_fns(**tkw).rollout(
+        static_t, state_t, n_tti, ReplayDraws(k, ref), None, fairness_p)
+    return ((out_j[0], np_(out_j[1])) + tuple(out_j[2:]),
+            (out_t[0], np_(out_t[1])) + tuple(out_t[2:]))
+
+
+RUNNABLE_SCENARIOS = [n for n in j_scen.scenario_names()
+                      if n != "outage_storm"]
+ENV_SMALL = dict(episode_tti=2, tti_per_step=1, telemetry=True)
+
+
+def env_pair(name, resample=False, **kw):
+    """(reference CrrmEnv, port CrrmEnv) of a preset at 24 UEs x 6 cells,
+    the port on the reference's roots and draws."""
+    params = j_scen.make_scenario(name, n_ues=24, n_cells=6)
+    ref = JEnv(params=params, resample_topology=resample, **ENV_SMALL, **kw)
+    port = TEnv(sim=port_of(ref.sim), resample_topology=resample,
+                draws=env_draws(ref), **ENV_SMALL, **kw)
+    return ref, port
+
+
+def check_env_step(out_t, out_j):
+    """(state, obs, reward, done, info) of the port against the
+    reference's."""
+    s_t, o_t, r_t, d_t, i_t = out_t
+    s_j, o_j, r_j, d_j, i_j = out_j
+    if hasattr(s_j, "ep"):
+        s_t, s_j = s_t.ep, s_j.ep
+    check_state(s_t, s_j)
+    np.testing.assert_allclose(np_(o_t.tput), np_(o_j.tput), rtol=1e-4,
+                               atol=1.0)
+    np.testing.assert_allclose(np_(o_t.backlog), np_(o_j.backlog),
+                               rtol=1e-4, atol=1.0)
+    np.testing.assert_allclose(float(r_t), float(r_j), rtol=1e-4)
+    assert bool(d_t) == bool(d_j)
+    check_telemetry(i_t["telemetry"], i_j["telemetry"])
+    rc_t, rc_j = i_t["reward_components"], i_j["reward_components"]
+    assert sorted(rc_t) == sorted(rc_j)
+    for k in rc_j:
+        np.testing.assert_allclose(np_(rc_t[k]), np_(rc_j[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+def bursty(ref):
+    """Does the reference env step with bursty traffic (then eagerly)?"""
+    return ref.params.traffic_model != "full_buffer"
