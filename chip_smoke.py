@@ -7,9 +7,16 @@ Phases, each printing its own lines:
 1. device  -- the card's name, the device count and its power limit;
 2. build   -- the nvcc build of every kernel source, its seconds and the
               ptxas register / shared-memory / spill lines;
-3. kernel  -- each kernel against its plain PyTorch version on the card, at
-              small ragged shapes and at the main path's full widths, with
-              CUDA-event times beside the plain version's and the bound;
+3. kernel  -- fused_sinr against its plain PyTorch version on the card: 70
+              ragged cases over every pathloss model and fading mode; exact
+              ties across lanes; ragged M and N at every lane-group size G;
+              then the full-width rows main, rb4, sect3, small and idx_rb4
+              (rows read by index from a 1M-row field), each with CUDA-event
+              times at every G beside the plain version's and the bound, the
+              max relative error of the per-link gain, the attachment held
+              to a float64 argmax, and for the unfaded rows the
+              special-function pipe's time at the SM clock; then the times
+              of every G at M = 300 and 600;
 4. pairwise -- the pairwise-distance kernel against its plain version at
               ragged shapes and at the full width of the million-UE
               field's D block (1M UEs x 127 cells), driven once through
@@ -40,8 +47,10 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -55,14 +64,21 @@ RTOL = 1e-4                  # total / w_best / gamma contract
 RTOL_DIST = 1e-6             # pairwise distances: the same rounded ops
 TIE_RTOL = 1e-5              # attachment near-tie margin
 
-# float32 operations per link of the kernel, one per arithmetic op or
-# transcendental call, as written in csrc/fused_sinr.cu
+# float32 operations per link of fused_sinr, one per arithmetic op or
+# transcendental call: the work of the function as the plain version writes
+# it, fixed when the kernel was first ported so that every kernel time is
+# held to the same bound; it is not recounted from the redesigned
+# csrc/fused_sinr.cu
 OPS_DIST = 11                # 3 sub, 4 mul, 2 add, 2 sqrt
 # sector: atan2, sub, sin, cos, atan2, div, 2 mul, min, sub, mul, pow
 OPS_SECTOR = 12
 OPS_MODEL = {0: 60, 1: 30, 2: 36, 3: 36, 4: 16, 5: 3}   # pathloss + pow
 OPS_PER_K = 6                # fading mul, power mul, 2 adds, mean mul-add
 OPS_ARGMAX = 1
+# Hopper's special-function pipe: log2 / exp2 / reciprocal results per clock
+# per SM, and the SMs of an H100 SXM
+SFU_PER_CLOCK_SM = 16
+H100_SMS = 132
 
 
 def log(phase, msg):
@@ -85,11 +101,19 @@ def zero_counts():
 
 
 def cuda_ms(fn, reps=20, warm=3):
-    """Mean device time of ``fn`` in ms over ``reps`` warm calls."""
+    """Mean device time of ``fn`` in ms over ``reps`` warm calls.  The calls
+    queue behind a sleep kernel long enough for the host to enqueue them
+    all, so they run back to back and the host's launch cost, which exceeds
+    a short kernel's time, does not set the pace."""
     for _ in range(warm):
         fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2e9 * (3 * reps * one + 1e-3)))   # ~cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -98,12 +122,12 @@ def cuda_ms(fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n, m, k, fad, model_id, n_sectors):
+def bound_ms(n, m, k, fad_floats, model_id, n_sectors, idx_bytes=0):
     """The least time of one fused_sinr call on these inputs: the larger of
-    its bytes over the memory rate and its operations over the fp32 rate."""
-    in_bytes = 4 * (3 * n + 3 * m + m * k + m)
-    if fad is not None:
-        in_bytes += 4 * fad.numel()
+    its bytes over the memory rate and its operations over the fp32 rate.
+    ``n`` rows are computed; ``fad_floats`` of fading and ``idx_bytes`` of
+    row index are what those rows read."""
+    in_bytes = 4 * (3 * n + 3 * m + m * k + m) + 4 * fad_floats + idx_bytes
     out_bytes = 4 * (2 * n * k + 2 * n)
     ops = n * m * (OPS_DIST + OPS_MODEL[model_id] + k * OPS_PER_K
                    + OPS_ARGMAX + (OPS_SECTOR if n_sectors > 1 else 0))
@@ -136,10 +160,28 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s")
     for name, (_, info) in libs.items():
         log("build", f"{name}.cu: {info.seconds:.2f} s -> {info.path.name}")
-        for line in info.log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
-                log("build", "  " + line.strip())
+        for line in ptxas_summary(info.log):
+            log("build", "  " + line)
+
+
+def ptxas_summary(text):
+    """One line per compiled kernel from ``ptxas -v``: registers, spills,
+    shared memory (template arguments of ``fused_sinr_kernel`` shown as
+    <family, KMAX, G>)."""
+    out, entry, spill = [], "?", ""
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+            t = re.search(r"fused_sinr_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          entry)
+            if t:
+                entry = "fused_sinr_kernel<{},{},{}>".format(*t.groups())
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{entry}: {used}; {spill}")
+    return out
 
 
 def make_inputs(n, m, k, fading, seed, n_sectors=1, h_bs=25.0,
@@ -147,7 +189,7 @@ def make_inputs(n, m, k, fading, seed, n_sectors=1, h_bs=25.0,
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = lambda *s: torch.rand(s, generator=g, device="cuda")
     U = torch.cat([u(n, 2) * extent, 1.0 + 1.5 * u(n, 1)], dim=1)
-    n_sites = max(1, m // n_sectors)
+    n_sites = max(1, -(-m // n_sectors))       # ceil: M need not divide
     sites = torch.cat([u(n_sites, 2) * extent,
                        torch.full((n_sites, 1), h_bs, device="cuda")], dim=1)
     C = torch.repeat_interleave(sites, n_sectors, dim=0)[:m].contiguous()
@@ -169,22 +211,29 @@ def near_tie_mask(U, C, P, bore, fad, model, n_sectors, attach_on_mean):
     g = radio.pathgains(cfg, U, C, bore)
     if fad is not None and not attach_on_mean:
         g = radio.apply_fading(g, fad)
-    top2 = torch.topk(radio.rsrp(g, P).sum(dim=2), 2, dim=1).values
+    meas = radio.rsrp(g, P).sum(dim=2)
+    if meas.shape[1] < 2:
+        return torch.zeros(meas.shape[0], dtype=torch.bool, device="cuda")
+    top2 = torch.topk(meas, 2, dim=1).values
     return (top2[:, 0] - top2[:, 1]) < TIE_RTOL * top2[:, 0]
 
 
-def check_kernel(args, model, n_sectors, attach_on_mean):
+def check_kernel(args, model, n_sectors, attach_on_mean, idx=None,
+                 group=None):
     """The kernel against its plain version; returns (max abs err of total,
     max rel err, near ties)."""
     from repro_torch.kernels import fused_sinr as fk
     U, C, P, bore, fad = args
     kw = dict(pathgain_fn=model, n_sectors=n_sectors,
-              attach_on_mean=attach_on_mean)
-    total, bval, bidx, wbest = fk.fused_sinr_accumulate(U, C, P, bore, fad,
-                                                        **kw)
+              attach_on_mean=attach_on_mean, idx=idx)
+    total, bval, bidx, wbest = fk._launch(U, C, P, bore, fad, group=group,
+                                          **kw)
     torch.cuda.synchronize()
     t_p, v_p, i_p, w_p = fk.fused_sinr_accumulate_plain(U, C, P, bore, fad,
                                                         **kw)
+    if idx is not None:
+        rows = idx.long()
+        U, fad = U[rows], None if fad is None else fad[rows]
     ties = near_tie_mask(U, C, P, bore, fad, model, n_sectors, attach_on_mean)
     n_ties = int(ties.sum())
     if n_ties > max(1, U.shape[0] // 100):
@@ -203,7 +252,6 @@ def check_kernel(args, model, n_sectors, attach_on_mean):
 
 
 def phase_kernel():
-    from repro_torch.kernels import fused_sinr as fk
     from repro_torch.sim import pathloss
     models = {"RMa": dict(fc_GHz=0.7), "RMa_constant_height": dict(fc_GHz=0.7),
               "RMa_discretised": dict(fc_GHz=0.7), "UMa": {}, "UMi": {},
@@ -222,28 +270,274 @@ def phase_kernel():
                 n_cases += 1
         log("kernel", f"{name}: 10 ragged cases (N=1000, M=57) agree; "
             f"last rel err {rel:.2e}, near ties {ties}")
+    n_cases += ragged_cases()
     log("kernel", f"{n_cases} ragged cases agree with the plain version")
+    return full_width_rows()
 
-    # full widths: the main path's shape (K=1, no fading) and per-RB K=4
+
+def ragged_cases():
+    """Exact ties across lanes, then M around a lane group and past one
+    shared tile, N below a block's rows, at every lane-group size."""
+    from repro_torch.kernels import fused_sinr as fk
+    from repro_torch.sim import pathloss
+    uma, n_cases = pathloss.UMa_pathloss(), 0
+    # every cell at j, j + 1 (neighbouring lanes) and j + 40: exact ties
+    U, C, P, _, _ = make_inputs(2000, 20, 1, None, seed=11)
+    C = torch.cat([torch.repeat_interleave(C, 2, dim=0)] * 2).contiguous()
+    P = torch.cat([torch.repeat_interleave(P, 2, dim=0)] * 2).contiguous()
+    bore = torch.zeros(80, device="cuda")
+    fad = torch.empty(2000, 80, device="cuda").exponential_()
+    for group in fk.GROUP_SIZES:
+        for f, aom in ((None, False), (fad, True)):
+            got = fk._launch(U, C, P, bore, f, group=group, pathgain_fn=uma,
+                             attach_on_mean=aom)
+            want = fk.fused_sinr_accumulate_plain(U, C, P, bore, f,
+                                                  pathgain_fn=uma,
+                                                  attach_on_mean=aom)
+            a = got[2][:, 0]
+            w_err = float(((got[3] - want[3]).abs() / want[3]).max())
+            if not (torch.equal(a, want[2][:, 0]) and bool((a % 2 == 0).all())
+                    and bool((a < 40).all()) and w_err <= RTOL):
+                raise AssertionError(f"exact ties: the lowest index did not "
+                                     f"win at G={group}")
+            n_cases += 1
+    log("kernel", f"exact ties across lanes (80 cells, each 4x): lowest "
+        f"index at G={fk.GROUP_SIZES}, with and without attach_on_mean")
+    worst = 0.0
+    for m in (1, 7, 31, 32, 33, 129, 300, 600):
+        for n in (1, 33, 1000):
+            for group in fk.GROUP_SIZES:
+                args = make_inputs(n, m, 3, "rb", seed=n + m, n_sectors=3)
+                _, rel, _ = check_kernel(args, uma, 3, False, group=group)
+                worst = max(worst, rel)
+                n_cases += 1
+    log("kernel", f"ragged M in (1, 7, 31, 32, 33, 129, 300, 600) x N in "
+        f"(1, 33, 1000) x G in {fk.GROUP_SIZES}, sectored, per-RB K=3: "
+        f"agree; max rel err {worst:.2e}")
+    # a first tile of one cell height, a second of mixed heights: the
+    # kernel's shared and per-link height terms in one launch
+    for name, kw in (("UMa", {}), ("UMi", {}), ("RMa", dict(fc_GHz=0.7))):
+        U, C, P, bore, fad = make_inputs(1000, 400, 2, "rb", seed=13,
+                                         h_bs=30.0)
+        C[256:, 2] = 10.0 + 25.0 * torch.rand(144, device="cuda")
+        _, rel, _ = check_kernel((U, C, P, bore, fad),
+                                 pathloss.make_pathloss(name, **kw), 1, False)
+        n_cases += 1
+    log("kernel", f"cells of mixed heights (UMa, UMi, RMa; M=400): agree; "
+        f"last rel err {rel:.2e}")
+    return n_cases
+
+
+def host_ms(fn, reps=50):
+    """Host time of one call of ``fn`` in ms: the enqueue, not synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def gain64(U, C, bore, model, n_sectors):
+    """The plain version's per-link gain (R, M) evaluated in float64."""
+    U, C, bore = U.double(), C.double(), bore.double()
+    dx = U[:, None, 0] - C[None, :, 0]
+    dy = U[:, None, 1] - C[None, :, 1]
+    dz = U[:, None, 2] - C[None, :, 2]
+    d2d = torch.sqrt(dx * dx + dy * dy)
+    d3d = torch.sqrt(d2d * d2d + dz * dz)
+    g = model(d2d, d3d, C[:, 2][None, :], U[:, 2][:, None])
+    if n_sectors > 1:
+        off = torch.atan2(dy, dx) - bore[None, :]
+        off = torch.atan2(torch.sin(off), torch.cos(off))
+        att = torch.clamp(12.0 * (off / 1.1344640137963142) ** 2, max=30.0)
+        g = g * torch.pow(10.0, -0.1 * att)
+    return g
+
+
+def gain_rel_err(U, C, bore, model, n_sectors, idx=None):
+    """Max relative error of the per-link gain over every link: (kernel vs
+    plain version, kernel vs float64, plain version vs float64).  One launch
+    per cell at unit power, so that total = gain."""
+    from repro_torch.kernels import fused_sinr as fk
+    one = torch.ones((1, 1), device="cuda")
+    kw = dict(idx=idx, pathgain_fn=model, n_sectors=n_sectors)
+    got, want = [], []
+    for j in range(C.shape[0]):
+        c, b = C[j:j + 1].contiguous(), bore[j:j + 1].contiguous()
+        got.append(fk.fused_sinr_accumulate(U, c, one, b, **kw)[0])
+        want.append(fk.fused_sinr_accumulate_plain(U, c, one, b, **kw)[0])
+    got, want = torch.cat(got, dim=1), torch.cat(want, dim=1)
+    exact = gain64(U if idx is None else U[idx.long()], C, bore, model,
+                   n_sectors)
+    rel = lambda a, b: float(((a.double() - b).abs() / b.abs()).max())
+    return rel(got, want.double()), rel(got, exact), rel(want, exact)
+
+
+def sm_clock_mhz(fn):
+    """The SM clock nvidia-smi reports while ``fn`` runs back to back."""
+    seen = {}
+
+    def sample():
+        time.sleep(0.5)
+        seen["out"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=60).stdout
+    th = threading.Thread(target=sample)
+    th.start()
+    while th.is_alive():
+        fn()
+    th.join()
+    torch.cuda.synchronize()
+    return float(seen["out"].split()[0])
+
+
+def full_width_rows():
+    """The kernel at the main path's widths: its time at the wrapper's lane
+    group and at every other, the plain version's, the bound, the error of
+    the outputs and of the per-link gain, and the special-function pipe."""
+    from repro_torch.kernels import fused_sinr as fk
+    from repro_torch.sim import pathloss
     uma = pathloss.UMa_pathloss()
+    cases = (  # label, rows, cells, K, fading, sectors, field rows
+        ("main", 100_000, 127, 1, None, 1, None),
+        ("rb4", 100_000, 127, 4, "rb", 1, None),
+        ("sect3", 100_000, 126, 1, None, 3, None),
+        ("small", 10_000, 127, 1, None, 1, None),
+        ("idx_rb4", 100_000, 127, 4, "rb", 1, 1_000_000))
     rows = {}
-    for label, k, fading in (("main", 1, None), ("rb4", 4, "rb")):
-        args = make_inputs(100_000, 127, k, fading, seed=7, extent=8000.0)
-        abs_err, rel, ties = check_kernel(args, uma, 1, False)
+    for label, n, m, k, fading, n_sectors, field in cases:
+        args = make_inputs(field or n, m, k, fading, seed=7, extent=8000.0,
+                           n_sectors=n_sectors)
         U, C, P, bore, fad = args
-        kw = dict(pathgain_fn=uma)
-        ms = cuda_ms(lambda: fk.fused_sinr_accumulate(U, C, P, bore, fad,
-                                                      **kw))
+        idx = None
+        if field:            # dirty rows of a larger field, with repeats
+            g = torch.Generator(device="cuda").manual_seed(5)
+            idx = torch.randint(0, field, (n,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            idx[n - n // 10:] = idx[:n // 10].clone()
+        kw = dict(pathgain_fn=uma, n_sectors=n_sectors, idx=idx)
+        group = fk.GROUP
+        abs_err, rel, ties = check_kernel(args, uma, n_sectors, False,
+                                          idx=idx)
+        g_err, g_k64, g_p64 = gain_rel_err(U, C, bore, uma, n_sectors,
+                                           idx=idx)
+        by_group = {}
+        for gs in fk.GROUP_SIZES:
+            if gs != group:
+                check_kernel(args, uma, n_sectors, False, idx=idx, group=gs)
+            by_group[gs] = cuda_ms(lambda: fk._launch(
+                U, C, P, bore, fad, group=gs, **kw))
+        ms = by_group[group]
         plain = cuda_ms(lambda: fk.fused_sinr_accumulate_plain(
             U, C, P, bore, fad, **kw), reps=5, warm=1)
-        b_ms, b_by = bound_ms(100_000, 127, k, fad, uma.kernel_spec()[0], 1)
+        host = host_ms(lambda: fk.fused_sinr_accumulate(U, C, P, bore, fad,
+                                                        **kw))
+        fad_floats = 0 if fad is None else n * fad[0].numel()
+        b_ms, b_by = bound_ms(n, m, k, fad_floats, uma.kernel_spec()[0],
+                              n_sectors, idx_bytes=0 if idx is None else 4 * n)
         rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by, max_abs_err=abs_err)
-        log("kernel", f"N=100000 M=127 K={k} fading={fading}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}); max abs err {abs_err:.3e} W, max rel err "
-            f"{rel:.2e}, near ties {ties}")
+        log("kernel", f"{label}: N={n} M={m} K={k} fading={fading} sectors="
+            f"{n_sectors}{'' if idx is None else f' rows of {field} by index'}"
+            f": kernel {ms:.4f} ms (G={group}), plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f} % of it); max abs "
+            f"err {abs_err:.3e} W, max rel err {rel:.2e}, near ties {ties}; "
+            f"host {host:.4f} ms per call")
+        log("kernel", f"{label}: per-link gain max rel err over {n * m} "
+            f"links: kernel vs plain {g_err:.2e}; against float64, kernel "
+            f"{g_k64:.2e}, plain {g_p64:.2e}")
+        n64, band, plain_band, plain_off = attach_vs_float64(args, uma,
+                                                             n_sectors, idx)
+        log("kernel", f"{label}: attachment vs the float64 argmax: kernel "
+            f"exact on all {n - n64} rows off float64 near ties ({n64} "
+            f"rows closer than {TIE_RTOL:g}); {band} rows with a gap in "
+            f"[{TIE_RTOL:g}, {3 * TIE_RTOL:g}), on which the plain version "
+            f"differs from float64 on {plain_band} (on {plain_off} rows off "
+            f"near ties in all)")
+        log("kernel", f"{label}: by lane group " + ", ".join(
+            f"G={gs} {t:.4f} ms" for gs, t in by_group.items()))
+        if idx is not None:
+            gathered = cuda_ms(lambda: fk.fused_sinr_accumulate(
+                U[idx.long()], C, P, bore, fad[idx.long()],
+                pathgain_fn=uma, n_sectors=n_sectors))
+            log("kernel", f"{label}: reading {n} rows by index {ms:.4f} ms "
+                f"vs gather U[idx], fad[idx] then the kernel {gathered:.4f} "
+                f"ms ({4 * n * m * k / 1e6:.1f} MB of fading gathered)")
+        if fading is None:
+            mhz = sm_clock_mhz(lambda: fk.fused_sinr_accumulate(
+                U, C, P, bore, fad, **kw))
+            n_sfu = 3 + (1 if n_sectors > 1 else 0)
+            sfu_ms = (n * m * n_sfu / (SFU_PER_CLOCK_SM * H100_SMS
+                                      * mhz * 1e6) * 1e3)
+            log("kernel", f"{label}: the function needs {n_sfu} "
+                f"transcendental calls per link (log2 d3d^2, log2(d_bp^2 + "
+                f"dh^2), exp2{', atan2' if n_sectors > 1 else ''}): "
+                f"{sfu_ms:.4f} ms at 16/clock/SM x {H100_SMS} SMs x "
+                f"{mhz:.0f} MHz (nvidia-smi clocks.sm during the run), "
+                f"against the fp32 bound {b_ms:.4f} ms: the "
+                f"{'special-function' if sfu_ms > b_ms else 'fp32'} pipe "
+                f"limits; kernel {ms:.4f} ms")
+        del args, U, C, P, bore, fad, idx
+        torch.cuda.empty_cache()
+    group_sweep(uma)
     return rows
+
+
+def attach_vs_float64(args, model, n_sectors, idx):
+    """The kernel's attachment against the argmax of the measurement
+    evaluated in float64.  Raises unless the kernel agrees on every row
+    whose two best cells differ by TIE_RTOL or more in float64; returns
+    (float64 near ties, rows with a gap in [TIE_RTOL, 3 TIE_RTOL), of those
+    the rows where the plain version differs from float64, rows where it
+    does off near ties)."""
+    from repro_torch.kernels import fused_sinr as fk
+    U, C, P, bore, fad = args
+    kw = dict(idx=idx, pathgain_fn=model, n_sectors=n_sectors)
+    got = fk.fused_sinr_accumulate(U, C, P, bore, fad, **kw)[2][:, 0].long()
+    plain = fk.fused_sinr_accumulate_plain(U, C, P, bore, fad,
+                                           **kw)[2][:, 0].long()
+    if idx is not None:
+        U, fad = U[idx.long()], None if fad is None else fad[idx.long()]
+    g = gain64(U, C, bore, model, n_sectors)[:, :, None]
+    if fad is not None:
+        g = g * (fad.double()[:, :, None] if fad.dim() == 2 else fad.double())
+    meas = (g * P.double()[None]).sum(dim=2)
+    del g
+    top2 = torch.topk(meas, 2, dim=1)
+    gap = (top2.values[:, 0] - top2.values[:, 1]) / top2.values[:, 0]
+    best = top2.indices[:, 0]
+    off = gap >= TIE_RTOL
+    bad = int((got != best)[off].sum())
+    if bad:
+        raise AssertionError(f"kernel attachment differs from the float64 "
+                             f"argmax on {bad} rows off near ties")
+    band = off & (gap < 3 * TIE_RTOL)
+    return (int((~off).sum()), int(band.sum()),
+            int((plain != best)[band].sum()), int((plain != best)[off].sum()))
+
+
+def group_sweep(model):
+    """The kernel's time at every lane group G at cell counts past the
+    full-width rows' (M = 300, 600), at 100 000 and 10 000 rows, unfaded and
+    per-RB: the shapes behind the wrapper's ``fused_sinr.GROUP``."""
+    from repro_torch.kernels import fused_sinr as fk
+    for n, m, k, fading in ((100_000, 300, 1, None), (100_000, 600, 1, None),
+                            (10_000, 300, 1, None), (10_000, 600, 1, None),
+                            (100_000, 300, 4, "rb"), (100_000, 600, 4, "rb")):
+        U, C, P, bore, fad = make_inputs(n, m, k, fading, seed=7,
+                                         extent=8000.0)
+        t = {gs: cuda_ms(lambda: fk._launch(U, C, P, bore, fad, group=gs,
+                                            pathgain_fn=model))
+             for gs in fk.GROUP_SIZES}
+        log("kernel", f"lane groups at N={n} M={m} K={k} fading={fading}: "
+            + ", ".join(f"G={gs} {x:.4f} ms" for gs, x in t.items())
+            + f"; the wrapper takes G={fk.GROUP}")
+        del U, C, P, bore, fad
+        torch.cuda.empty_cache()
 
 
 def dist_errors(got, want):

@@ -1,7 +1,8 @@
 """The fused CRRM pipeline D -> G -> RSRP -> (total, argmax, serving row).
 
-Replaces the Pallas TPU kernel ``repro.kernels.fused_sinr
-.fused_sinr_accumulate``.  Two versions of one function live here:
+Replaces the Pallas TPU kernel ``fused_sinr_accumulate``
+(``src/repro/kernels/fused_sinr.py:139``).  Two versions of one function
+live here:
 
 * :func:`fused_sinr_accumulate` -- for CUDA tensors it launches the
   hand-written kernel of ``csrc/fused_sinr.cu`` (built at first use, see
@@ -10,21 +11,39 @@ Replaces the Pallas TPU kernel ``repro.kernels.fused_sinr
   version.  A CUDA tensor never reaches the plain version: the kernel
   launches or the call raises.
 * :func:`fused_sinr_accumulate_plain` -- the same function in plain
-  PyTorch, materialising the (N, M[, K]) matrices.  The CPU tests use it,
+  PyTorch, materialising the (R, M[, K]) matrices.  The CPU tests use it,
   and ``chip_smoke.py`` holds the kernel against it on the card.
 
-Bound on the card: with no fading the kernel is arithmetic bound (several
-``log10f``, a ``powf`` and two ``sqrtf`` per link, plus ``atan2f``/``sinf``/
-``cosf``/``powf`` when sectored) on a few bytes of input per UE; with
-per-RB fading, reading the (N, M, K) tensor once sets a byte bound.
+Both take an optional row index ``idx``: the output rows are then the UE
+rows ``idx`` of ``U`` (and of the fading tensor), the engine's dirty rows,
+so no caller gathers them.  The kernel reads them by index itself.
+
+The kernel's design: a group of :data:`GROUP` lanes owns one UE row and
+strides over the cells; a shuffle merge keeps ``jnp.argmax``'s
+lowest-index tie-break.  The pathloss model's constants are folded on the
+host (``kernel_spec()`` of ``sim/pathloss.py``), so a link costs one
+accurate log2 and one exp2.  Bound on the card: with no fading,
+operations (the special-function pipe needs less time than the fp32
+one); with per-RB fading, reading the (R, M, K) fading rows once.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.sim import pathloss
+
+#: lanes per UE row of every launch: on an H100 the fastest lane group at
+#: 100 000 rows for M = 126 to 600 cells, within 6 % of 16 at 10 000 rows
+#: (PERF.md)
+GROUP = 8
+#: lane groups built for the UMa/UMi family at K <= 4, to time and test the
+#: kernel at each; every other model and K has GROUP only
+GROUP_SIZES = (8, 16, 32)
+
 
 def _check(name, x, shape, dtype, device):
     if not isinstance(x, torch.Tensor):
@@ -40,7 +59,20 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _validate(U, C, Pw, boresight, fad, attach_on_mean):
+def _check_idx(idx, dev):
+    if not isinstance(idx, torch.Tensor):
+        raise TypeError("idx must be a tensor")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64; got {idx.dtype}")
+    if idx.dim() != 1:
+        raise ValueError(f"idx must have shape (R,); got {tuple(idx.shape)}")
+    if idx.device != dev:
+        raise ValueError(f"idx is on {idx.device}, expected {dev}")
+    if not idx.is_contiguous():
+        raise ValueError("idx must be contiguous")
+
+
+def _validate(U, C, Pw, boresight, fad, idx, attach_on_mean):
     n, m, k = U.shape[0], C.shape[0], Pw.shape[1]
     dev = U.device
     f32 = torch.float32
@@ -48,6 +80,8 @@ def _validate(U, C, Pw, boresight, fad, attach_on_mean):
     _check("C", C, (m, 3), f32, dev)
     _check("Pw", Pw, (m, k), f32, dev)
     _check("boresight", boresight, (m,), f32, dev)
+    if idx is not None:
+        _check_idx(idx, dev)
     if fad is None:
         if attach_on_mean:
             raise ValueError("attach_on_mean requires a fading tensor")
@@ -61,12 +95,20 @@ def _validate(U, C, Pw, boresight, fad, attach_on_mean):
     return n, m, k, mode
 
 
-def fused_sinr_accumulate_plain(U, C, Pw, boresight, fad=None, *,
+def fused_sinr_accumulate_plain(U, C, Pw, boresight, fad=None, *, idx=None,
                                 pathgain_fn, n_sectors: int = 1,
                                 attach_on_mean: bool = False):
-    """Plain PyTorch version.  Returns (total (N, K), best_val (N, 1),
-    best_idx (N, 1) int32, w_best (N, K)), like the TPU kernel."""
-    n, m, k, mode = _validate(U, C, Pw, boresight, fad, attach_on_mean)
+    """Plain PyTorch version.  Returns (total (R, K), best_val (R, 1),
+    best_idx (R, 1) int32, w_best (R, K)), like the TPU kernel; R = N, or
+    the length of ``idx``, whose range it checks."""
+    n, m, k, mode = _validate(U, C, Pw, boresight, fad, idx, attach_on_mean)
+    if idx is not None:
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+            raise ValueError(f"idx out of range for {n} UE rows")
+        rows = idx.long()
+        U = U[rows]
+        fad = None if fad is None else fad[rows]
+    r_n = U.shape[0]
     dx = U[:, None, 0] - C[None, :, 0]
     dy = U[:, None, 1] - C[None, :, 1]
     dz = U[:, None, 2] - C[None, :, 2]
@@ -90,14 +132,33 @@ def fused_sinr_accumulate_plain(U, C, Pw, boresight, fad=None, *,
     total = r.sum(dim=1)
     best_val = meas.max(dim=1).values
     best_idx = torch.argmax(meas, dim=1)      # first maximum: lowest index
-    w_best = torch.gather(r, 1, best_idx[:, None, None].expand(n, 1, k))[:, 0]
+    w_best = torch.gather(r, 1, best_idx[:, None, None].expand(r_n, 1, k))
     return (total, best_val[:, None], best_idx.to(torch.int32)[:, None],
-            w_best)
+            w_best[:, 0])
 
 
-def _launch(U, C, Pw, boresight, fad, *, pathgain_fn, n_sectors,
-            attach_on_mean):
-    n, m, k, mode = _validate(U, C, Pw, boresight, fad, attach_on_mean)
+_KERNEL = None
+
+
+def _kernel():
+    """(launch function, max K, max parameters) of ``csrc/fused_sinr.cu``,
+    built at first use; the ctypes signature is set once, here."""
+    global _KERNEL
+    if _KERNEL is None:
+        lib, _ = build.load("fused_sinr")
+        fn = lib.fused_sinr_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        _KERNEL = (fn, lib.fused_sinr_max_k(), lib.fused_sinr_max_pl_params())
+    return _KERNEL
+
+
+@functools.lru_cache(maxsize=64)
+def _model_params(pathgain_fn):
+    """(model id, ctypes float array, length) of a pathloss model: its
+    folded constants, computed once per model object."""
     spec = getattr(pathgain_fn, "kernel_spec", None)
     if spec is None:
         raise ValueError(
@@ -105,31 +166,47 @@ def _launch(U, C, Pw, boresight, fad, *, pathgain_fn, n_sectors,
             f"{pathgain_fn!r}: only the PATHLOSS_MODELS of "
             f"repro_torch.sim.pathloss describe themselves to it")
     model_id, params = spec()
-    lib, _ = build.load("fused_sinr")
-    if k > lib.fused_sinr_max_k():
-        raise ValueError(f"the fused CUDA kernel takes at most "
-                         f"{lib.fused_sinr_max_k()} frequency chunks; got {k}")
-    if len(params) > lib.fused_sinr_max_pl_params():
-        raise ValueError(f"pathloss model needs {len(params)} kernel "
-                         f"parameters; the kernel takes at most "
-                         f"{lib.fused_sinr_max_pl_params()}")
+    return model_id, (ctypes.c_float * max(1, len(params)))(*params), \
+        len(params)
+
+
+def _launch(U, C, Pw, boresight, fad=None, *, idx=None, pathgain_fn,
+            n_sectors=1, attach_on_mean=False, group=None):
+    """The CUDA launch behind :func:`fused_sinr_accumulate`.  ``group``
+    overrides the lanes per row (default :data:`GROUP`): a hook for timing
+    and testing each lane group."""
+    n, m, k, mode = _validate(U, C, Pw, boresight, fad, idx, attach_on_mean)
+    r_n = n if idx is None else idx.shape[0]
+    if r_n == 0 or m == 0:
+        raise ValueError(f"the fused CUDA kernel needs at least one row and "
+                         f"one cell; got {r_n} rows, M={m}")
+    group = GROUP if group is None else group
+    model_id, plp, n_pl = _model_params(pathgain_fn)
+    if group != GROUP and (group not in GROUP_SIZES or k > 4 or model_id
+                           not in (pathloss.PL_UMA, pathloss.PL_UMI)):
+        raise ValueError(f"lane group {group} is not built: every model has "
+                         f"{GROUP}, UMa and UMi at K <= 4 also {GROUP_SIZES}")
+    fn, max_k, max_pl = _kernel()
+    if k > max_k:
+        raise ValueError(f"the fused CUDA kernel takes at most {max_k} "
+                         f"frequency chunks; got {k}")
+    if n_pl > max_pl:
+        raise ValueError(f"pathloss model needs {n_pl} kernel parameters; "
+                         f"the kernel takes at most {max_pl}")
     dev = U.device
-    total = torch.empty((n, k), dtype=torch.float32, device=dev)
-    w_best = torch.empty((n, k), dtype=torch.float32, device=dev)
-    best_val = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    best_idx = torch.empty((n, 1), dtype=torch.int32, device=dev)
-    plp = (ctypes.c_float * max(1, len(params)))(*params)
-    fn = lib.fused_sinr_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    total = torch.empty((r_n, k), dtype=torch.float32, device=dev)
+    w_best = torch.empty((r_n, k), dtype=torch.float32, device=dev)
+    best_val = torch.empty((r_n, 1), dtype=torch.float32, device=dev)
+    best_idx = torch.empty((r_n, 1), dtype=torch.int32, device=dev)
+    idx_bits = 0 if idx is None else 8 * idx.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(U.data_ptr(), C.data_ptr(), Pw.data_ptr(),
                  boresight.data_ptr(), 0 if fad is None else fad.data_ptr(),
+                 0 if idx is None else idx.data_ptr(), idx_bits,
                  total.data_ptr(), best_val.data_ptr(), best_idx.data_ptr(),
-                 w_best.data_ptr(), n, m, k, mode, int(attach_on_mean),
-                 int(n_sectors), model_id, plp, len(params), stream)
+                 w_best.data_ptr(), n, r_n, m, k, mode, int(attach_on_mean),
+                 int(n_sectors), group, model_id, plp, n_pl, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_sinr kernel launch failed: CUDA error {err}")
@@ -137,19 +214,25 @@ def _launch(U, C, Pw, boresight, fad, *, pathgain_fn, n_sectors,
     return total, best_val, best_idx, w_best
 
 
-def fused_sinr_accumulate(U, C, Pw, boresight, fad=None, *, pathgain_fn,
-                          n_sectors: int = 1, attach_on_mean: bool = False):
+def fused_sinr_accumulate(U, C, Pw, boresight, fad=None, *, idx=None,
+                          pathgain_fn, n_sectors: int = 1,
+                          attach_on_mean: bool = False):
     """Run the fused accumulator.  Returns (total, best_val, best_idx, w_best).
 
     Shapes: U (N, 3), C (M, 3), Pw (M, K), boresight (M,), fad None /
-    (N, M) wideband / (N, M, K) per-RB, all float32 on one device.  The
-    CUDA kernel masks ragged edges itself, so no padding is needed.
-    ``attach_on_mean`` ranks servers on the unfaded RSRP row sum
-    (``attach_ignores_fading``); it requires ``fad``.  ``pathgain_fn`` is
-    a model of ``repro_torch.sim.pathloss`` (the kernel reads its
-    ``kernel_spec``; the plain version calls it).
+    (N, M) wideband / (N, M, K) per-RB, all float32 on one device.
+    ``idx`` (R,) int32 or int64 selects the output rows (UE rows of U and
+    fad; repeats allowed); without it R = N.  On CUDA the range
+    ``0 <= idx < N`` is the caller's contract, not checked here, so that a
+    launch costs no device-to-host sync (a row out of range gets NaN and
+    attachment -1); the plain version checks it.  The CUDA kernel masks
+    ragged edges itself, so no padding is needed.  ``attach_on_mean`` ranks
+    servers on the unfaded RSRP row sum (``attach_ignores_fading``); it
+    requires ``fad``.  ``pathgain_fn`` is a model of
+    ``repro_torch.sim.pathloss`` (the kernel reads its ``kernel_spec``; the
+    plain version calls it).
     """
-    kw = dict(pathgain_fn=pathgain_fn, n_sectors=n_sectors,
+    kw = dict(idx=idx, pathgain_fn=pathgain_fn, n_sectors=n_sectors,
               attach_on_mean=attach_on_mean)
     if U.device.type == "cpu":
         return fused_sinr_accumulate_plain(U, C, Pw, boresight, fad, **kw)

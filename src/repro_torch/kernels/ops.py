@@ -20,22 +20,23 @@ def pairwise_dist(U, C):
 
 
 def fused_sinr(U, C, Pw, *, pathgain_fn, noise_w: float, boresight=None,
-               fad=None, attach_on_mean: bool = False, n_sectors: int = 1):
+               fad=None, attach_on_mean: bool = False, n_sectors: int = 1,
+               idx=None):
     """Fused D->G->RSRP->w/u->SINR pipeline: returns (gamma, a, w, u).
 
-    ``a`` is the (N,) int32 attachment, ``w``/``u`` the (N, K) wanted and
+    ``a`` is the (R,) int32 attachment, ``w``/``u`` the (R, K) wanted and
     interference powers, ``gamma = w / (noise + u)``.  ``fad`` streams
     per-link fading -- (N, M) wideband or (N, M, K) per-RB -- and
-    ``attach_on_mean`` attaches on the unfaded RSRP row sum.  The same
-    entry point serves the dirty-row incremental backend: callers gather
-    the dirty UE slab and scatter the returned rows back
-    (``radio.radio_update_rows_fused``).
+    ``attach_on_mean`` attaches on the unfaded RSRP row sum.  ``idx`` (R,)
+    selects UE rows of ``U`` and ``fad`` (R = N without it): the dirty-row
+    incremental backend passes its dirty rows and scatters the returned
+    rows back (``radio.radio_update_rows_fused``); nothing is gathered.
     """
     if boresight is None:
         boresight = torch.zeros((C.shape[0],), dtype=torch.float32,
                                 device=C.device)
     total, _, barg, wbest = _fused.fused_sinr_accumulate(
-        U, C, Pw, boresight.reshape(-1).contiguous(), fad,
+        U, C, Pw, boresight.reshape(-1).contiguous(), fad, idx=idx,
         pathgain_fn=pathgain_fn, n_sectors=n_sectors,
         attach_on_mean=attach_on_mean)
     u = total - wbest

@@ -8,8 +8,11 @@ distances or Python floats.
 Each model can also describe itself to the fused CUDA kernel
 (``kernels/fused_sinr``) as ``kernel_spec() -> (model_id, params)``: a
 model id from the ``PL_*`` constants and a short tuple of floats that the
-kernel's ``__device__`` function for that model reads.  The layouts of the
-tuples are fixed here and in ``kernels/csrc/fused_sinr.cu``.
+kernel's family for that model reads.  The constants are folded here in
+float64 into a log2-gain form, ``log2 g = -0.1 log2(10) * pathloss_dB``,
+in which a pathloss of ``b * lg(d3d)`` dB becomes ``-b/20 * log2(d3d^2)``:
+a link then costs the kernel one log of d3d^2 and one exp2.  The layouts
+of the tuples are fixed here and in ``kernels/csrc/fused_sinr.cu``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,21 @@ PL_UMA = 2
 PL_UMI = 3
 PL_INH = 4
 PL_POWER_LAW = 5
+
+
+#: log2(gain) = -LOG2_GAIN_PER_DB * pathloss(dB)
+LOG2_GAIN_PER_DB = 0.1 * math.log2(10.0)
+
+
+def _l2g(pl_db: float) -> float:
+    """A pathloss term in dB as a log2-gain term (float64)."""
+    return -LOG2_GAIN_PER_DB * pl_db
+
+
+def _slope(db_per_decade: float) -> float:
+    """``b * lg(d3d)`` dB as the coefficient of ``log2(d3d^2)`` in log2
+    gain: ``-S b lg(d) = -b/20 log2(d^2)``."""
+    return -0.05 * db_per_decade
 
 
 def db_to_gain(pl_db):
@@ -112,10 +130,26 @@ class RMa_pathloss(PathlossBase):
             return self.los_pathloss_dB(d2d, d3d, h_bs, h_ut)
         return self.nlos_pathloss_dB(d2d, d3d, h_bs, h_ut)
 
-    def kernel_spec(self):
+    def _kernel_pl1(self):
+        """(C0, s1, lin): PL1(d) = C0 + s1 log2(d^2) + lin d in log2 gain."""
         a, b = self._ab()
-        return PL_RMA, (self.fc_GHz, self.W, self.h, a, b, float(self.LOS),
-                        0.0, 0.0, 0.0)
+        return (_l2g(20.0 * math.log10(40.0 * math.pi * self.fc_GHz / 3.0)
+                     - b),
+                _slope(20.0 + a), _l2g(0.002 * math.log10(self.h)))
+
+    def _kernel_heights(self):
+        """(fixed, h_bs, h_ut): heights the kernel reads instead of the
+        positions' when ``fixed`` is 1."""
+        return 0.0, 0.0, 0.0
+
+    def kernel_spec(self):
+        # kappa, C0, s1, lin, LOS, fixed, h_bs, h_ut, Kc, h (PL<F_RMA>)
+        c0, s1, lin = self._kernel_pl1()
+        kc = _l2g(161.04 - 7.1 * math.log10(self.W) + 7.5 * math.log10(self.h)
+                  + 20.0 * math.log10(self.fc_GHz) + 4.97)
+        kappa = 2.0 * math.pi * self.fc_GHz * 1e9 / C_LIGHT
+        return PL_RMA, (kappa, c0, s1, lin, float(self.LOS),
+                        *self._kernel_heights(), kc, float(self.h))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +163,8 @@ class RMa_pathloss_constant_height(RMa_pathloss):
         # heights are baked in; arguments accepted (and ignored)
         return super().get_pathloss_dB(d2d, d3d, self.h_bs, self.h_ut)
 
-    def kernel_spec(self):
-        a, b = self._ab()
-        return PL_RMA, (self.fc_GHz, self.W, self.h, a, b, float(self.LOS),
-                        1.0, self.h_bs, self.h_ut)
+    def _kernel_heights(self):
+        return 1.0, float(self.h_bs), float(self.h_ut)
 
 
 class RMa_pathloss_discretised:
@@ -197,12 +229,19 @@ class RMa_pathloss_discretised:
         return self.get_pathgain(d2d, d3d, h_bs, h_ut)
 
     def kernel_spec(self):
-        a, b = self.full._ab()
+        # C0, s1, lin, LOS, h_min, h_step, sn, H, then (d_bp, c2, cn) per
+        # height bin (PL<F_RMA_DISC>)
+        c0, s1, lin = self.full._kernel_pl1()
+        bins = []
+        for d_bp, pl1_bp, a in zip(self.d_bp_lut.tolist(),
+                                   self.pl1_at_bp_lut.tolist(),
+                                   self.A_lut.tolist()):
+            bins += [d_bp, _l2g(pl1_bp - 40.0 * math.log10(max(d_bp, 1.0))),
+                     _l2g(a)]
         return PL_RMA_DISCRETISED, (
-            (self.fc_GHz, self.full.h, a, b, float(self.LOS), self.h_ut_min,
-             self.h_ut_step, self.B, float(self.h_grid.shape[0]))
-            + tuple(self.A_lut.tolist()) + tuple(self.d_bp_lut.tolist())
-            + tuple(self.pl1_at_bp_lut.tolist()))
+            (c0, s1, lin, float(self.LOS), float(self.h_ut_min),
+             float(self.h_ut_step), _slope(self.B),
+             float(self.h_grid.shape[0])) + tuple(bins))
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +276,13 @@ class UMa_pathloss(PathlossBase):
         return self.nlos_pathloss_dB(d2d, d3d, h_bs, h_ut)
 
     def kernel_spec(self):
-        return PL_UMA, (self.fc_GHz, float(self.LOS))
+        # kappa, c1, s1, c2, s2, t2, LOS, cn, sn, hn (PL<F_UM>)
+        lfc = math.log10(self.fc_GHz)
+        c1 = _l2g(28.0 + 20.0 * lfc)
+        return PL_UMA, (4.0 * self.fc_GHz * 1e9 / C_LIGHT, c1, _slope(22.0),
+                        c1, _slope(40.0), 0.9, float(self.LOS),
+                        _l2g(13.54 + 0.6 * 1.5 + 20.0 * lfc), _slope(39.08),
+                        0.6 * LOG2_GAIN_PER_DB)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +316,13 @@ class UMi_pathloss(PathlossBase):
         return self.nlos_pathloss_dB(d2d, d3d, h_bs, h_ut)
 
     def kernel_spec(self):
-        return PL_UMI, (self.fc_GHz, float(self.LOS))
+        # kappa, c1, s1, c2, s2, t2, LOS, cn, sn, hn (PL<F_UM>)
+        lfc = math.log10(self.fc_GHz)
+        c1 = _l2g(32.4 + 20.0 * lfc)
+        return PL_UMI, (4.0 * self.fc_GHz * 1e9 / C_LIGHT, c1, _slope(21.0),
+                        c1, _slope(40.0), 0.95, float(self.LOS),
+                        _l2g(22.4 + 0.3 * 1.5 + 21.3 * lfc), _slope(35.3),
+                        0.3 * LOG2_GAIN_PER_DB)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +344,11 @@ class InH_pathloss(PathlossBase):
         return self.nlos_pathloss_dB(d2d, d3d, h_bs, h_ut)
 
     def kernel_spec(self):
-        return PL_INH, (self.fc_GHz, float(self.LOS))
+        # c1, s1, LOS, cn, sn (PL<F_INH>)
+        lfc = math.log10(self.fc_GHz)
+        return PL_INH, (_l2g(32.4 + 20.0 * lfc), _slope(17.3),
+                        float(self.LOS), _l2g(17.30 + 24.9 * lfc),
+                        _slope(38.3))
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +367,8 @@ class PowerLaw_pathloss(PathlossBase):
         return torch.pow(torch.clamp(d3d / self.d0, min=1e-9), -self.alpha)
 
     def kernel_spec(self):
-        return PL_POWER_LAW, (self.alpha, self.d0)
+        # -alpha / 2, 1 / d0^2 (PL<F_POW>)
+        return PL_POWER_LAW, (-0.5 * self.alpha, 1.0 / self.d0 ** 2)
 
 
 PATHLOSS_MODELS = {

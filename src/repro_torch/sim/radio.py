@@ -363,10 +363,11 @@ def radio_update_rows_fused(cfg: RadioConfig, state: RadioState, U, C, bore,
                             fad, P, idx) -> RadioState:
     """:func:`radio_update_rows` through the fused kernel.
 
-    Gathers the dirty UE slab (positions and fading rows), runs
-    ``kernels.ops.fused_sinr`` against all cells -- the CUDA kernel on CUDA
-    tensors, its plain version on CPU tensors -- and scatters the a/se/cqi
-    rows back.  Handover tables (``se_all``) and carried gains (``G``) need
+    Runs ``kernels.ops.fused_sinr`` on the dirty rows ``idx`` (int32 or
+    int64) of the full positions and fading against all cells -- the CUDA
+    kernel reads the rows by index on CUDA tensors, its plain version
+    gathers them on CPU tensors -- and scatters the a/se/cqi rows back.
+    Handover tables (``se_all``) and carried gains (``G``) need
     O(n_cell)-per-row outputs the streaming kernel never produces, so those
     regimes raise.
     """
@@ -380,17 +381,16 @@ def radio_update_rows_fused(cfg: RadioConfig, state: RadioState, U, C, bore,
         raise ValueError(f"the fused kernel cannot express this "
                          f"configuration: {reason}")
     from repro_torch.kernels import ops
-    idx = idx.long()
-    fad_rows = None if fad is None else fad[idx]
     gamma, a_rows, _, _ = ops.fused_sinr(
-        U[idx], C, P, pathgain_fn=cfg.pathgain_fn, noise_w=cfg.noise_w,
-        boresight=bore, fad=fad_rows,
-        attach_on_mean=(fad_rows is not None and cfg.rayleigh_fading
+        U, C, P, pathgain_fn=cfg.pathgain_fn, noise_w=cfg.noise_w,
+        boresight=bore, fad=fad, idx=idx,
+        attach_on_mean=(fad is not None and cfg.rayleigh_fading
                         and cfg.attach_ignores_fading),
         n_sectors=cfg.n_sectors)
     se_rows, cqi_rows = se_chain(cfg, gamma)
     rows = RadioState(meas=None, a=a_rows, se=se_rows, cqi=cqi_rows,
                       se_all=None, cqi_all=None, G=None, G0=None)
+    idx = idx.long()
     return RadioState(*(_scatter(o, idx, n) for o, n in zip(state, rows)))
 
 

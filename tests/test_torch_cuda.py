@@ -23,7 +23,7 @@ from repro_torch.kernels import fused_sinr as fk
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pdk
 from repro_torch.mac.engine import Draws
-from repro_torch.sim import pathloss, radio
+from repro_torch.sim import pathloss, phy, radio
 
 pytestmark = pytest.mark.gpu
 
@@ -51,7 +51,7 @@ def make_inputs(n, m, k, fading, seed=0, n_sectors=1, extent=2000.0,
     rng = np.random.default_rng(seed)
     U = np.column_stack([rng.uniform(0, extent, (n, 2)),
                          rng.uniform(1.0, 2.5, (n, 1))]).astype(np.float32)
-    n_sites = max(1, m // n_sectors)
+    n_sites = max(1, -(-m // n_sectors))         # ceil: M need not divide
     sites = np.column_stack([rng.uniform(0, extent, (n_sites, 2)),
                              np.full((n_sites, 1), h_bs)])
     C = np.repeat(sites, n_sectors, axis=0)[:m].astype(np.float32)
@@ -76,16 +76,22 @@ def near_ties(U, C, P, bore, fad, model, n_sectors, attach_on_mean):
     if fad is not None and not attach_on_mean:
         g = radio.apply_fading(g, fad)
     meas = radio.rsrp(g, P).sum(dim=2)
+    if meas.shape[1] < 2:
+        return np.zeros(meas.shape[0], bool)
     top2 = torch.topk(meas, 2, dim=1).values
     return ((top2[:, 0] - top2[:, 1]) < 1e-5 * top2[:, 0]).cpu().numpy()
 
 
-def check_against_plain(args, model, n_sectors, attach_on_mean):
+def check_against_plain(args, model, n_sectors, attach_on_mean, idx=None,
+                        group=None):
     U, C, P, bore, fad = args
     kw = dict(pathgain_fn=model, n_sectors=n_sectors,
-              attach_on_mean=attach_on_mean)
+              attach_on_mean=attach_on_mean, idx=idx)
     before = fk.fused_sinr_accumulate.launches
-    got = fk.fused_sinr_accumulate(U, C, P, bore, fad, **kw)
+    if group is None:
+        got = fk.fused_sinr_accumulate(U, C, P, bore, fad, **kw)
+    else:
+        got = fk._launch(U, C, P, bore, fad, group=group, **kw)
     torch.cuda.synchronize()
     assert fk.fused_sinr_accumulate.launches == before + 1
     want = fk.fused_sinr_accumulate_plain(U, C, P, bore, fad, **kw)
@@ -93,6 +99,9 @@ def check_against_plain(args, model, n_sectors, attach_on_mean):
     t_p, v_p, i_p, w_p = (x.cpu().numpy() for x in want)
     np.testing.assert_allclose(total, t_p, rtol=1e-4)
     np.testing.assert_allclose(bval, v_p, rtol=1e-4)
+    if idx is not None:
+        rows = idx.long()
+        U, fad = U[rows], None if fad is None else fad[rows]
     ties = near_ties(U, C, P, bore, fad, model, n_sectors, attach_on_mean)
     assert ties.mean() <= 0.01
     np.testing.assert_array_equal(bidx[~ties], i_p[~ties])
@@ -125,6 +134,141 @@ def test_kernel_tie_takes_lowest_cell(cuda):
     out = fk.fused_sinr_accumulate(U, C, P, bore, None,
                                    pathgain_fn=pathloss.UMa_pathloss())
     assert out[2][:, 0].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("group", fk.GROUP_SIZES)
+@pytest.mark.parametrize("fading", [None, "wide"])
+def test_kernel_exact_ties_across_lanes_take_lowest_cell(cuda, group, fading):
+    """Every cell twice: at j and j + 1 (neighbouring lanes of one group)
+    and again at j + 40 (another pass of a lane, or another lane).  The
+    measurements tie exactly, so the lowest of the copies must serve; with
+    wideband fading the tie is on the unfaded mean (attach_on_mean) while
+    the serving row carries that cell's own fading."""
+    U, C, P, bore, fad = make_inputs(500, 20, 1, fading, seed=4, device=cuda)
+    C2 = torch.repeat_interleave(C, 2, dim=0)
+    C = torch.cat([C2, C2]).contiguous()             # 80 cells
+    P2 = torch.repeat_interleave(P, 2, dim=0)
+    P = torch.cat([P2, P2]).contiguous()
+    bore = torch.zeros(80, device=cuda)
+    if fad is not None:
+        fad = torch.rand((500, 80), generator=torch.Generator(
+            device=cuda).manual_seed(1), device=cuda) + 0.5
+    kw = dict(pathgain_fn=pathloss.UMa_pathloss(),
+              attach_on_mean=fad is not None)
+    got = fk._launch(U, C, P, bore, fad, group=group, **kw)
+    want = fk.fused_sinr_accumulate_plain(U, C, P, bore, fad, **kw)
+    a = got[2][:, 0]
+    assert torch.equal(a, want[2][:, 0])
+    assert (a % 2 == 0).all() and (a < 40).all()
+    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+@pytest.mark.parametrize("m", [1, 7, 31, 32, 33, 129, 300, 600])
+def test_kernel_ragged_rows_and_cells(cuda, n, m):
+    """M around a lane group and past one shared tile (256 cells), N below
+    a block's rows; sectored with per-RB fading (K = 3)."""
+    args = make_inputs(n, m, 3, "rb", seed=n + m, n_sectors=3, device=cuda)
+    check_against_plain(args, pathloss.UMi_pathloss(), 3, False)
+
+
+@pytest.mark.parametrize("name,group",
+                         [(name, fk.GROUP) for name in
+                          ("RMa", "RMa_constant_height", "UMa", "UMi")]
+                         + [(name, group) for name in ("UMa", "UMi")
+                            for group in fk.GROUP_SIZES if group != fk.GROUP])
+def test_kernel_cells_of_different_heights(cuda, name, group):
+    """Cells of one height share their height-only pathloss terms; here the
+    first tile of 256 cells has one height and the second mixes heights,
+    so both of the kernel's paths run in one launch."""
+    U, C, P, bore, fad = make_inputs(600, 400, 2, "rb", seed=12,
+                                     h_bs=30.0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    C[256:, 2] = 10.0 + 25.0 * torch.rand(144, generator=g, device=cuda)
+    model = pathloss.make_pathloss(name, **MODELS[name])
+    check_against_plain((U, C, P, bore, fad), model, 1, False, group=group)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("fading", [None, "rb"])
+def test_kernel_frequency_chunks(cuda, k, fading):
+    args = make_inputs(700, 57, k, fading, seed=k, device=cuda)
+    check_against_plain(args, pathloss.UMa_pathloss(), 1, False)
+
+
+@pytest.mark.parametrize("group", fk.GROUP_SIZES)
+@pytest.mark.parametrize("m,k,fading", [(5, 1, None), (57, 4, "rb"),
+                                         (127, 1, "wide"), (300, 2, None)])
+def test_kernel_each_lane_group_matches_plain(cuda, group, m, k, fading):
+    args = make_inputs(999, m, k, fading, seed=m, device=cuda)
+    check_against_plain(args, pathloss.UMa_pathloss(), 1, False, group=group)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("fading,attach_on_mean",
+                         [(None, False), ("wide", True), ("rb", False)])
+def test_kernel_reads_rows_by_index(cuda, dtype, fading, attach_on_mean):
+    """Dirty rows read by index, repeats included, against the plain
+    version's gather."""
+    args = make_inputs(5000, 57, 4 if fading == "rb" else 1, fading, seed=9,
+                       n_sectors=3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    idx = torch.randint(0, 5000, (1500,), generator=g, device=cuda)
+    idx[700:] = idx[:800].clone()                   # repeats
+    check_against_plain(args, pathloss.UMa_pathloss(), 3, attach_on_mean,
+                        idx=idx.to(dtype))
+
+
+def test_kernel_index_out_of_range_reads_nothing(cuda):
+    """The range is the caller's contract: an index out of range reads no
+    memory and yields NaN and attachment -1 for its row only."""
+    U, C, P, bore, _ = make_inputs(10, 7, 2, None, device=cuda)
+    idx = torch.tensor([3, 10, -1, 3], dtype=torch.int32, device=cuda)
+    total, bval, bidx, wbest = fk.fused_sinr_accumulate(
+        U, C, P, bore, idx=idx, pathgain_fn=pathloss.UMa_pathloss())
+    assert bidx[:, 0].tolist()[1:3] == [-1, -1]
+    assert torch.isnan(total[1:3]).all() and torch.isnan(bval[1:3]).all()
+    assert torch.equal(total[0], total[3]) and bidx[0, 0] >= 0
+
+
+@pytest.mark.parametrize("fading", [False, True])
+def test_radio_update_rows_fused_by_index_matches_torch(cuda, fading):
+    """radio_update_rows_fused hands the full positions and fading and the
+    dirty index to the kernel; it equals the torch row recompute."""
+    p = CRRM_parameters(n_ues=3000, n_cells=19, seed=5,
+                        pathloss_model_name="UMa", power_W=10.0,
+                        rayleigh_fading=fading, n_rb_subbands=4 if fading
+                        else 1, radio_mode="incremental")
+    sim = CRRM(p, device=cuda)
+    rs = sim.radio_static()
+    U, fad = sim.U._data, sim.fading._data if fading else None
+    cfg = rs.cfg
+    U2 = U.clone()
+    idx = radio.pad_indices(list(range(0, 3000, 7)))
+    idx = torch.as_tensor(idx, device=cuda)
+    U2[idx.long()] += 15.0
+    out = {}
+    for be, upd in (("torch", radio.radio_update_rows),
+                    ("fused", radio.radio_update_rows_fused)):
+        st = radio.radio_init(cfg, U, rs.C, rs.bore, fad, rs.P)
+        before = fk.fused_sinr_accumulate.launches
+        out[be] = upd(cfg, st, U2, rs.C, rs.bore, fad, rs.P, idx)
+        assert fk.fused_sinr_accumulate.launches - before == (be == "fused")
+    # attachment exact off near ties; CQI and SE exact off the CQI steps
+    want = radio.radio_forward(rs, U2, fad=fad)
+    G0 = radio.pathgains(cfg, U2, rs.C, rs.bore)
+    meas = radio.rsrp(G0 if cfg.attach_ignores_fading or fad is None
+                      else radio.apply_fading(G0, fad), rs.P).sum(dim=2)
+    top2 = torch.topk(meas, 2, dim=1).values
+    ties = (top2[:, 0] - top2[:, 1]) < 1e-5 * top2[:, 0]
+    thr = phy.table("CQI_SINR_THRESHOLDS_DB", cuda)
+    db = phy.sinr_to_db(want.gamma)
+    edge = ((db[..., None] - thr).abs() < 1e-4).any(dim=-1) | ties[:, None]
+    assert ties.float().mean() <= 0.01
+    f, t = out["fused"], out["torch"]
+    assert torch.equal(f.a[~ties], t.a[~ties])
+    assert torch.equal(f.cqi[~edge], t.cqi[~edge])
+    assert torch.equal(f.se[~edge], t.se[~edge])
 
 
 def test_torch_argmax_ties_lowest_index_on_cuda(cuda):
