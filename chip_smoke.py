@@ -35,10 +35,30 @@ Phases, each printing its own lines:
               two resets of one seed and ``step_autoreset`` held equal
               bit for bit (in PyTorch's deterministic mode, so that the
               atomics of ``index_add_`` add in a fixed order); one
-              ``resample_topology`` reset.
+              ``resample_topology`` reset;
+8. churn   -- the million-UE episode of phase 6 under birth-death churn
+              (the twin bench's ratios): newborn rows join the mover rows
+              in one fused_sinr index, so one launch per TTI; active UEs
+              and dirty rows per TTI, ms/TTI with and without churn, peak
+              memory and a profile of one TTI; then dense (torch) vs
+              incremental (fused) under churn at 100 000 UEs;
+9. faults  -- the same episode under ``outage_storm``'s fault process:
+              ``inc_backend="auto"`` resolves to the torch rows (printed
+              with its reason) and ``"fused"`` raises; cells down and
+              reattachments per TTI, ms/TTI with and without faults, peak
+              memory, how often a cell changes state, a profile of one
+              TTI; dense vs incremental at 100 000 UEs; the
+              ``outage_storm`` env at 100 000 UEs to ``done`` with its KPIs;
+10. batch  -- ``CrrmEnv`` on ``dense_urban_twin`` at 100 000 UEs with
+              B = 8 seeds: ``reset_batch``, ``step_batch`` to ``done`` and
+              one ``step_autoreset_batch``; ms per batched step beside 8
+              single steps, launches per TTI of each; row b against
+              ``reset(seed_b)`` + ``step`` in deterministic mode (bit for
+              bit, or within rtol 1e-6 with the leaves that differ named);
+              one ``resample_topology`` batched reset.
 
-Each path (pairwise, episode, env) sets every kernel's launch count to 0
-just before it and reads the counts just after.  The line before the last
+Each path (pairwise, episode, env, churn, faults, batch) sets every
+kernel's launch count to 0 just before it and reads the counts just after.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
 it exits non-zero before printing any result.
@@ -61,6 +81,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 H100_FP32_OPS = 67e12        # float32 outside the tensor cores, op/s
 H100_BYTES = 3.35e12         # HBM3, bytes/s
 RTOL = 1e-4                  # total / w_best / gamma contract
+#: the million-UE episode of phases 6, 8 and 9 (benchmarks/paper_benches.py)
+EPISODE = dict(n_cells=127, n_sectors=1, seed=3, pathloss_model_name="UMa",
+               power_W=10.0, scheduler_policy="pf", fairness_p=0.5,
+               mobility_step_m=20.0, mobility_move_frac=0.1)
+#: the twin bench's churn ratios: 0.35 x capacity arrivals per second, a
+#: 2 s mean lifetime, capacity // 512 births per TTI at most
+#: (benchmarks/paper_benches.py:721-722)
+CHURN_1M = dict(arrival_rate_hz=350_000.0, mean_lifetime_s=2.0,
+                max_arrivals_per_tti=1953)
+CHURN_100K = dict(arrival_rate_hz=35_000.0, mean_lifetime_s=2.0,
+                  max_arrivals_per_tti=195)
+#: outage_storm's fault process (sim/scenarios.py)
+STORM = dict(outage_rate_hz=5.0, mean_outage_s=0.03, sleep_rate_hz=5.0,
+             mean_sleep_s=0.02, sleep_atten_db=10.0)
 RTOL_DIST = 1e-6             # pairwise distances: the same rounded ops
 TIE_RTOL = 1e-5              # attachment near-tie margin
 
@@ -661,16 +695,23 @@ def phase_forward():
         del sim, rs, U, fad, want, got, G0, use
 
 
-def per_tti_ms(fns, static, state, draws):
-    """Host-clock ms per TTI: (rollout of 6 TTIs - rollout of 1) / 5."""
-    times = {}
-    for n in (1, 6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fns.rollout(static, state, n, draws)
-        torch.cuda.synchronize()
-        times[n] = time.perf_counter() - t0
-    return (times[6] - times[1]) / 5 * 1e3
+def per_tti_ms(fns, static, state, draws, reps=3):
+    """Host-clock ms per TTI: (rollout of 6 TTIs - rollout of 1) / 5, the
+    median of ``reps`` pairs after one warm-up rollout (a first rollout
+    pays the allocator's growth, which a single pair can charge to the
+    1-TTI side and so report a negative time)."""
+    fns.rollout(static, state, 1, draws)
+    per = []
+    for _ in range(reps):
+        times = {}
+        for n in (1, 6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns.rollout(static, state, n, draws)
+            torch.cuda.synchronize()
+            times[n] = time.perf_counter() - t0
+        per.append((times[6] - times[1]) / 5 * 1e3)
+    return sorted(per)[len(per) // 2]
 
 
 def profiled(fn):
@@ -705,7 +746,7 @@ def log_breakdown(phase, unit, wall_us, per, top=8):
         log(phase, f"  {us:9.1f} us/{unit}  x{cnt:4.0f}  {name[:90]}")
 
 
-def device_breakdown(fns, static, state, draws):
+def device_breakdown(fns, static, state, draws, phase="episode"):
     """Per-TTI device busy time, kernel launches and the heaviest kernels:
     a rollout of 6 TTIs minus a rollout of 1, which cancels the set-up (the
     full-width RadioState init)."""
@@ -714,7 +755,7 @@ def device_breakdown(fns, static, state, draws):
     per = {name: ((us - k1.get(name, (0.0, 0))[0]) / 5,
                   (cnt - k1.get(name, (0.0, 0))[1]) / 5)
            for name, (us, cnt) in k6.items()}
-    log_breakdown("episode", "TTI", (w6 - w1) / 5 * 1e6, per)
+    log_breakdown(phase, "TTI", (w6 - w1) / 5 * 1e6, per)
 
 
 def phase_episode():
@@ -722,9 +763,7 @@ def phase_episode():
     from repro_torch.core.params import CRRM_parameters
     from repro_torch.kernels import fused_sinr as fk
     from repro_torch.mac.engine import Draws
-    kw = dict(n_cells=127, n_sectors=1, seed=3, pathloss_model_name="UMa",
-              power_W=10.0, scheduler_policy="pf", fairness_p=0.5,
-              mobility_step_m=20.0, mobility_move_frac=0.1)
+    kw = EPISODE
     n_tti = 5
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -886,6 +925,291 @@ def phase_env():
     return step_ms
 
 
+
+def compare_modes(label, phase, n_tti, **fns_kw):
+    """Dense (torch) against incremental at 100 000 UEs on the same draws:
+    max relative throughput error, ms/TTI of each, and the final states."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws, seed_churn_state
+    outs, times, finals = {}, {}, {}
+    be_inc = fns_kw.pop("inc_backend")
+    for mode, be in (("dense", "torch"), ("incremental", be_inc)):
+        sim = CRRM(CRRM_parameters(n_ues=100_000, radio_mode=mode,
+                                   **EPISODE))
+        fns = sim.episode_fns(inc_backend=be, **fns_kw)
+        static, state = sim.episode_static(), sim.init_episode_state()
+        if "churn" in fns_kw:
+            state = seed_churn_state(state, static, sim.params)
+        finals[mode], outs[mode] = fns.rollout(static, state, n_tti,
+                                               Draws(3, "cuda"))
+        times[mode] = per_tti_ms(fns, static, state, Draws(3, "cuda"))
+        del sim, fns, static, state
+    dense, inc = outs["dense"], outs["incremental"]
+    rel = float((inc - dense).abs().max() / dense.abs().max().clamp(min=1.0))
+    log(phase, f"100000 x 127 {label}: dense (torch) {times['dense']:.3f} "
+        f"ms/TTI, incremental ({be_inc}) {times['incremental']:.3f} ms/TTI, "
+        f"max rel err {rel:.3e} over {n_tti} TTIs")
+    if rel > RTOL:
+        raise AssertionError(f"{label}: incremental deviates from dense: "
+                             f"{rel:.3e}")
+    return finals
+
+
+def phase_churn():
+    """The million-UE episode under birth-death churn: newborn rows join
+    the mover rows in the fused kernel's index, one launch per TTI."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws, seed_churn_state
+    from repro_torch.sim.mobility import ChurnConfig
+    churn, n_tti = ChurnConfig(**CHURN_1M), 20
+    torch.cuda.reset_peak_memory_stats()
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, radio_mode="incremental",
+                               **EPISODE))
+    fns = sim.episode_fns(inc_backend="fused", churn=churn, telemetry=True)
+    static = sim.episode_static()
+    state = seed_churn_state(sim.init_episode_state(), static, sim.params)
+    draws = Draws(3, "cuda")
+    # -- the churn path: counts to 0 just before, read just after ---------
+    torch.cuda.synchronize()
+    zero_counts()
+    out, tput, telem = fns.rollout(static, state, n_tti, draws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_tti = counts["fused_sinr"] / n_tti
+    active = telem.active_ues.tolist()
+    log("churn", f"1M x 127 incremental fused under {CHURN_1M}: launches "
+        f"{counts} over {n_tti} TTIs ({per_tti:g} fused_sinr per TTI)")
+    log("churn", f"active_ues per TTI: {active}")
+    log("churn", f"dirty rows per TTI (movers + newborns): "
+        f"{telem.dirty_rows.tolist()}")
+    if per_tti != 1:
+        raise AssertionError(f"expected 1 fused_sinr launch per TTI, got "
+                             f"{per_tti}")
+    if not (tput.shape == (n_tti, 1_000_000) and torch.isfinite(tput).all()
+            and int(telem.active_ues[-1]) == int(out.active.sum())
+            and bool((tput[-1][~out.active] == 0.0).all())
+            and min(active) < 1_000_000 and torch.isfinite(out.U).all()):
+        raise AssertionError("churn: bad throughput, counts or positions")
+    plain = sim.episode_fns(inc_backend="fused", churn=churn)
+    ms_churn = per_tti_ms(plain, static, state, draws)
+    ms_still = per_tti_ms(sim.episode_fns(inc_backend="fused"), static,
+                          sim.init_episode_state(), draws)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("churn", f"1M x 127: {ms_churn:.3f} ms/TTI with churn, "
+        f"{ms_still:.3f} ms/TTI without (host clock, synchronised); peak "
+        f"device memory {peak:.2f} GiB")
+    device_breakdown(plain, static, state, draws, phase="churn")
+    del sim, fns, plain, static, state, out, tput, telem
+    torch.cuda.empty_cache()
+    finals = compare_modes(f"under churn {CHURN_100K}", "churn", 10,
+                           inc_backend="fused",
+                           churn=ChurnConfig(**CHURN_100K))
+    if not torch.equal(finals["dense"].active, finals["incremental"].active):
+        raise AssertionError("churn: dense and incremental active masks "
+                             "differ")
+    return per_tti
+
+
+def phase_faults():
+    """The million-UE episode under outage_storm's fault process: the
+    incremental rows take the torch route (the kernel never holds the
+    carried gains), and fault transitions re-derive every UE branch-free."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.env import CrrmEnv
+    from repro_torch.mac.engine import Draws
+    from repro_torch.obs import format_summary, summarize
+    from repro_torch.sim import faults as sim_faults
+    faults, n_tti = sim_faults.FaultConfig(**STORM), 20
+    torch.cuda.reset_peak_memory_stats()
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, radio_mode="incremental",
+                               **EPISODE))
+    fns = sim.episode_fns(inc_backend="auto", faults=faults, telemetry=True)
+    log("faults", f"inc_backend='auto' under faults resolves to "
+        f"{fns.inc_backend!r}: {fns.inc_reason}")
+    if fns.inc_backend != "torch":
+        raise AssertionError("auto did not resolve to the torch rows")
+    try:
+        sim.episode_fns(inc_backend="fused", faults=faults)
+    except ValueError as e:
+        log("faults", f"inc_backend='fused' under faults raises ValueError: "
+            f"{e}")
+    else:
+        raise AssertionError("inc_backend='fused' under faults did not raise")
+    static, state, draws = sim.episode_static(), sim.init_episode_state(), \
+        Draws(3, "cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    out, tput, telem = fns.rollout(static, state, n_tti, draws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log("faults", f"1M x 127 incremental under {STORM}: launches {counts} "
+        f"over {n_tti} TTIs")
+    log("faults", f"cells_down per TTI: {telem.cells_down.tolist()}")
+    log("faults", f"reattach_events per TTI: "
+        f"{telem.reattach_events.tolist()}")
+    if not (tput.shape == (n_tti, 1_000_000) and torch.isfinite(tput).all()
+            and out.cell_state.shape == (127,)):
+        raise AssertionError("faults: bad throughput or fault state")
+    plain = sim.episode_fns(inc_backend="auto", faults=faults)
+    ms_faults = per_tti_ms(plain, static, state, draws)
+    ms_off = per_tti_ms(sim.episode_fns(inc_backend="torch", faults=0),
+                        static, state, draws)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # how often the branch-free cell update has a transition to apply
+    cs, moved = torch.zeros(127, dtype=torch.int32, device="cuda"), 0
+    for t in range(1000):
+        cs, changed = sim_faults.fault_step(draws.fault_uniform(t, 127), cs,
+                                            1e-3, faults)
+        moved += int(changed.any())
+    log("faults", f"1M x 127: {ms_faults:.3f} ms/TTI with faults (torch "
+        f"rows, with_gain), {ms_off:.3f} ms/TTI without (torch rows); peak "
+        f"device memory {peak:.2f} GiB; a cell changes state in {moved} of "
+        f"1000 TTIs")
+    device_breakdown(plain, static, state, draws, phase="faults")
+    del sim, fns, plain, static, state, out, tput, telem
+    torch.cuda.empty_cache()
+    finals = compare_modes(f"under faults {STORM}", "faults", 10,
+                           inc_backend="auto", faults=faults)
+    if not torch.equal(finals["dense"].cell_state,
+                       finals["incremental"].cell_state):
+        raise AssertionError("faults: dense and incremental fault states "
+                             "differ")
+    env = CrrmEnv(scenario="outage_storm",
+                  scenario_overrides={"n_ues": 100_000}, tti_per_step=5,
+                  episode_tti=10, telemetry=True)
+    state, _ = env.reset(0)
+    done, step_ms, telems = False, [], []
+    while not done:
+        (state, obs, reward, done, info), ms = env_step_ms(env, state, None)
+        done = bool(done)
+        step_ms.append(ms)
+        telems.append(info["telemetry"])
+    from repro_torch.obs.telemetry import Telemetry
+    stacked = Telemetry(*(None if v[0] is None else torch.cat(v)
+                          for v in zip(*telems)))
+    log("faults", f"CrrmEnv outage_storm at 100000 UEs x {env.n_cells} "
+        f"cells: ms per env step (5 TTIs) "
+        + ", ".join(f"{ms:.3f}" for ms in step_ms)
+        + f"; KPIs over the episode:\n" + format_summary(
+            summarize(stacked, tti_s=env.params.tti_s)))
+    if not (torch.isfinite(obs.tput).all() and len(step_ms) == 2):
+        raise AssertionError("faults: bad outage_storm env episode")
+    del env, state, obs
+    torch.cuda.empty_cache()
+
+
+def launches_per_tti(fn, n_tti):
+    """Device kernel launches per TTI of ``fn()`` under the profiler."""
+    _, per = profiled(fn)
+    return sum(c for _, c in per.values()) / n_tti
+
+
+def phase_batch():
+    """CrrmEnv's batch axis on dense_urban_twin at 100 000 UEs: B = 8 envs
+    stepped to done and autoreset; each row held to its single env."""
+    from repro_torch.env import CrrmEnv
+    kw = dict(scenario="dense_urban_twin",
+              scenario_overrides={"n_ues": 100_000}, tti_per_step=5,
+              episode_tti=10)
+    env = CrrmEnv(**kw)
+    seeds, B = list(range(8)), 8
+    acts = torch.stack([env.uniform_action()] * B)
+    torch.cuda.synchronize()
+    zero_counts()
+    states, _ = env.reset_batch(seeds)
+    done, batch_ms = torch.zeros(B, dtype=torch.bool), []
+    while not bool(done.all()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, obs, reward, done = env.step_batch(states, acts)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_ar, _, _, d_ar = env.step_autoreset_batch(states, acts,
+                                                [s + 100 for s in seeds])
+    torch.cuda.synchronize()
+    ar_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    if not (obs.tput.shape == (B, 100_000) and torch.isfinite(obs.tput).all()
+            and len(batch_ms) == 2 and bool(d_ar.all())
+            and s_ar.t.tolist() == [0] * B
+            and s_ar.seed.tolist() == [s + 100 for s in seeds]):
+        raise AssertionError("batch: bad batched episode or autoreset")
+    single_ms = []
+    s, _ = env.reset(0)
+    for _ in range(2):
+        (s, *_), ms = env_step_ms(env, s, acts[0])
+        single_ms.append(ms)
+    log("batch", f"dense_urban_twin at 100000 UEs, B = {B}: launches "
+        f"{counts}; ms per batched step (5 TTIs) "
+        + ", ".join(f"{ms:.3f}" for ms in batch_ms)
+        + f"; step_autoreset_batch {ar_ms:.3f}; single env step "
+        + ", ".join(f"{ms:.3f}" for ms in single_ms)
+        + f" (x{B}: {B * single_ms[-1]:.3f})")
+    st0, _ = env.reset_batch(seeds)
+    lb = launches_per_tti(lambda: env.step_batch(st0, acts), 5)
+    ls = launches_per_tti(lambda: env.step(env.reset(0)[0], acts[0]), 5)
+    log("batch", f"kernel launches per TTI: batched (B = {B}) {lb:.0f}, "
+        f"single env {ls:.0f} (x{B}: {B * ls:.0f})")
+    wall, per = profiled(lambda: env.step_batch(st0, acts))
+    log_breakdown("batch", "batched step", wall * 1e6, per)
+    del env, states, s_ar, st0, obs
+    # -- row b == reset(seed_b) + step, in deterministic mode -------------
+    torch.use_deterministic_algorithms(True)
+    try:
+        env = CrrmEnv(telemetry=True, **kw)
+        out = env.step_batch(env.reset_batch(seeds)[0], acts)
+        worst, differ = 0.0, set()
+        for b, seed in enumerate(seeds):
+            one = env.step(env.reset(seed)[0], acts[b])
+            pairs = [(f"state.{f}", x[b], y) for f, x, y in
+                     zip(one[0]._fields, out[0], one[0]) if y is not None]
+            pairs += [("obs.tput", out[1].tput[b], one[1].tput),
+                      ("reward", out[2][b], one[2])]
+            pairs += [(f"telemetry.{f}", x[b], y) for f, x, y in
+                      zip(one[4]["telemetry"]._fields, out[4]["telemetry"],
+                          one[4]["telemetry"]) if y is not None]
+            for name, x, y in pairs:
+                if torch.equal(x, y):
+                    continue
+                differ.add(name)
+                if not x.is_floating_point():
+                    raise AssertionError(f"batch: {name} of row {b} differs")
+                rel = (x - y).abs() / y.abs().clamp(min=1e-30)
+                worst = max(worst, float(rel.max()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not differ:
+        log("batch", "deterministic mode: every row equals reset(seed_b) + "
+            "step bit for bit (state, obs, reward, telemetry)")
+    elif worst <= 1e-6:
+        log("batch", f"deterministic mode: rows agree within rtol 1e-6 "
+            f"(max rel {worst:.3e}), not bit for bit in {sorted(differ)}: "
+            f"a float reduction over the UE axis of B envs at once adds in "
+            f"another order than over one env's")
+    else:
+        raise AssertionError(f"batch: row b deviates from the single env "
+                             f"in {sorted(differ)}: {worst:.3e}")
+    del env, out
+    env_r = CrrmEnv(resample_topology=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_r, _ = env_r.reset_batch(seeds)
+    torch.cuda.synchronize()
+    ms_r = (time.perf_counter() - t0) * 1e3
+    if not (st_r.ep.U.shape == (B, 100_000, 3)
+            and torch.isfinite(st_r.static.se).all()
+            and not torch.equal(st_r.ep.U[0], st_r.ep.U[1])):
+        raise AssertionError("batch: bad resampled batched reset")
+    log("batch", f"resample_topology reset_batch, B = {B} x 100000 UEs: "
+        f"{ms_r:.3f} ms")
+    del env_r, st_r
+    torch.cuda.empty_cache()
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -894,6 +1218,9 @@ def main():
     phase_forward()
     launches = phase_episode()
     phase_env()
+    phase_churn()
+    phase_faults()
+    phase_batch()
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

@@ -77,7 +77,10 @@ def episode_static(data: dict, device) -> EpisodeStatic:
 def episode_state(data: dict, device) -> EpisodeState:
     """The port's ``EpisodeState`` from the reference's fields (its PRNG
     ``key`` is ignored: the port draws through ``mac.engine.Draws``; the
-    env's episode ``seed`` is taken where ``data`` has one)."""
+    env's episode ``seed`` is taken where ``data`` has one).  The churn
+    leaves (``active`` bool, ``fad``) and the fault codes (``cell_state``
+    int32) carry over where present, and a batched state (every leaf with
+    a leading B, as the reference's ``vmap`` makes it) stays batched."""
     return _tuple(EpisodeState, {k: v for k, v in data.items() if k != "key"},
                   device)
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import not_in_slice, resolve_device
+from repro_torch import resolve_device
 from repro_torch.core import blocks
 from repro_torch.core.graph import Graph, RootNode
 from repro_torch.core.params import CRRM_parameters
@@ -34,9 +34,6 @@ from repro_torch.sim.pathloss import make_pathloss
 
 class CRRM:
     def __init__(self, params: CRRM_parameters, device=None):
-        if params.faults is not None:
-            raise not_in_slice("the cell fault process "
-                               "(CRRM_parameters.faults)", "faults")
         self.params = params
         self.device = dev = resolve_device(device)
         p = params
@@ -306,18 +303,22 @@ class CRRM:
 
     def episode_fns(self, mobility_step_m=None, per_tti_fading: bool = False,
                     use_harq=None, radio_mode=None, mobility_move_frac=None,
-                    inc_backend=None, telemetry: bool = False, **later):
+                    inc_backend=None, telemetry: bool = False, churn=None,
+                    faults=None, **later):
         """The ``(step, rollout)`` episode functions for this simulator,
         cached per switch combination (see ``mac.engine.make_episode_fns``).
-        ``telemetry`` adds a per-TTI KPI tuple to both functions' returns.
-        Mesh, churn, relax and faults raise ``NotImplementedError``: they
-        wait for later slices."""
+        ``telemetry`` adds a per-TTI KPI tuple to both functions' returns;
+        ``churn`` a ``sim.mobility.ChurnConfig`` turns on the birth-death
+        UE process; ``faults`` (default ``params.faults``, ``0`` forces it
+        off) the per-cell fault process.  Mesh and relax raise
+        ``NotImplementedError``: they wait for later slices."""
         from repro_torch.mac import engine as mac_engine
         return mac_engine.episode_fns_for(
             self, mobility_step_m=mobility_step_m,
             per_tti_fading=per_tti_fading, use_harq=use_harq,
             radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
-            inc_backend=inc_backend, telemetry=telemetry, **later)
+            inc_backend=inc_backend, telemetry=telemetry, churn=churn,
+            faults=faults, **later)
 
     def sync_episode_state(self, state, positions: bool = False) -> None:
         """Write a final ``EpisodeState`` back into the graph."""
@@ -341,7 +342,8 @@ class CRRM:
     def run_episode(self, n_tti: int, draws=None, mobility_step_m=None,
                     per_tti_fading: bool = False, sync_state: bool = True,
                     use_harq=None, radio_mode=None, mobility_move_frac=None,
-                    inc_backend=None, telemetry: bool = False, **later):
+                    inc_backend=None, telemetry: bool = False, churn=None,
+                    faults=None, **later):
         """Roll ``n_tti`` TTIs; returns (n_tti, n_ues) delivered bits/s, or
         ``(tput, telem)`` with ``telemetry=True``."""
         from repro_torch.mac import engine as mac_engine
@@ -350,7 +352,7 @@ class CRRM:
             per_tti_fading=per_tti_fading, sync_state=sync_state,
             use_harq=use_harq, radio_mode=radio_mode,
             mobility_move_frac=mobility_move_frac, inc_backend=inc_backend,
-            telemetry=telemetry, **later)
+            telemetry=telemetry, churn=churn, faults=faults, **later)
 
     # -------------------------------------------------------------- introspection
     def update_counts(self):

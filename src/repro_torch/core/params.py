@@ -1,9 +1,8 @@
 """CRRM_parameters -- the single configuration object for a simulation.
 
 A copy of ``repro.core.params``: the same fields, defaults, validation and
-derived properties.  ``faults`` takes a ``sim.faults.FaultConfig`` and is
-validated as in the reference; running the fault process belongs to a
-later slice of the port, so ``CRRM`` refuses parameters that set it.
+derived properties.  ``faults`` takes a ``sim.faults.FaultConfig``,
+validated as in the reference; the episode engine runs it by default.
 """
 from __future__ import annotations
 
@@ -82,8 +81,8 @@ class CRRM_parameters:
     mobility_move_frac: Optional[float] = None
     #: "dense" | "incremental" radio chain inside the episode engine
     radio_mode: str = "dense"
-    #: cell fault process (a ``sim.faults.FaultConfig``); CRRM refuses it
-    #: until the faults slice
+    #: cell fault process (a ``sim.faults.FaultConfig``) the episode
+    #: engine runs by default; None = no faults
     faults: Optional[Any] = None
     ho_enabled: bool = False
     ho_hysteresis_db: float = 3.0          # A3 entry margin over serving RSRP

@@ -1,6 +1,6 @@
 """CrrmEnv: a functional, gym-style environment over CRRM.
 
-The port of ``repro.env.crrm_env`` on one device, without the batch axis:
+The port of ``repro.env.crrm_env`` on one device:
 
 * ``reset(seed) -> (state, EnvObs)`` and
   ``step(state, action, fairness_p) -> (state, EnvObs, reward, done)`` are
@@ -26,8 +26,13 @@ Two regimes, as in the reference:
   ``radio.radio_forward``); the state is a :class:`TopoEnvState`.
 
 The batched surfaces (``reset_batch``, ``step_batch``,
-``step_autoreset_batch``), churn, faults and the mesh wait for later
-slices and raise ``NotImplementedError``.
+``step_autoreset_batch``) run B episodes from B seeds as one batched
+state: every leaf leads with B, and each env keeps its own seed, TTI
+counter and draws, so row b of a batch is the single episode of seed b.
+``churn=`` runs the birth-death UE process and ``faults=`` the per-cell
+fault process inside every decision window (``faults`` defaults to the
+params', as ``outage_storm`` sets it).  The mesh waits for a later slice
+and raises ``NotImplementedError``.
 
 >>> env = CrrmEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=50),
 ...               device="cpu")
@@ -43,7 +48,8 @@ import torch
 from repro_torch import not_in_slice
 from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
-from repro_torch.mac.engine import Draws, stationary_served_tput
+from repro_torch.mac.engine import (Draws, env_slice, seed_churn_state,
+                                     stationary_served_tput)
 from repro_torch.sim import radio
 
 
@@ -150,8 +156,18 @@ class CrrmEnv:
     draws:
         ``draws(seed, device) -> Draws``: the episode's random draws from
         its seed (default :class:`~repro_torch.mac.engine.Draws`).
-    churn, faults, mesh:
-        Later slices of the port: anything but ``None`` raises.
+    churn:
+        A ``sim.mobility.ChurnConfig``: the birth-death UE process runs in
+        every decision window (the capacity-padded ``active`` mask rides
+        the state) and the telemetry gains ``active_ues``.  Incompatible
+        with ``resample_topology``.
+    faults:
+        A ``sim.faults.FaultConfig``: the per-cell fault process runs in
+        every decision window and the telemetry gains ``cells_down`` and
+        ``reattach_events``.  Defaults to ``params.faults``; ``0`` forces
+        it off.
+    mesh:
+        A later slice of the port: anything but ``None`` raises.
     """
 
     def __init__(self, params: Optional[CRRM_parameters] = None, *,
@@ -173,11 +189,14 @@ class CrrmEnv:
             raise ValueError("scenario_overrides requires scenario=")
         if episode_tti < 1 or tti_per_step < 1:
             raise ValueError("episode_tti and tti_per_step must be >= 1")
-        for name, value, slice_name in (("churn", churn, "churn"),
-                                        ("faults", faults, "faults"),
-                                        ("mesh", mesh, "mesh")):
-            if value is not None:
-                raise not_in_slice(f"CrrmEnv({name}=...)", slice_name)
+        if mesh is not None:
+            raise not_in_slice("CrrmEnv(mesh=...)", "mesh")
+        if churn is not None and resample_topology:
+            raise ValueError(
+                "churn= is incompatible with resample_topology=True: a "
+                "resampled reset rebuilds EpisodeStatic per topology draw "
+                "while churn carries its fading leaf in the state; run "
+                "churn on the fixed construction-time topology")
         self.scenario = scenario
         self.episode_tti = int(episode_tti)
         self.tti_per_step = int(tti_per_step)
@@ -190,14 +209,20 @@ class CrrmEnv:
         self._reward_fn = reward_fn or buffer_aware_reward
         self._draws = draws or Draws
         self.telemetry = bool(telemetry)
+        self.churn, self.faults = churn, faults
         self._fns = self.sim.episode_fns(per_tti_fading=per_tti_fading,
                                          radio_mode=radio_mode,
-                                         telemetry=self.telemetry)
+                                         telemetry=self.telemetry,
+                                         churn=churn, faults=faults)
         self._static = self.sim.episode_static()
         self._radio_static = self.sim.radio_static()
         # the reset template: PF EWMA seeded at the stationary alpha-fair
         # point, empty HARQ processes, attachment-serving, t=0
         self._state0 = self.sim.init_episode_state()
+        if churn is not None:
+            self._state0 = seed_churn_state(
+                self._state0, self._static, self.params,
+                per_tti_fading=per_tti_fading)
 
     # ------------------------------------------------------------- actions
     @property
@@ -285,7 +310,11 @@ class CrrmEnv:
         ep, tput, *telem = self._fns.rollout(static, ep, self.tti_per_step,
                                              draws, power, fairness_p)
         obs = EnvObs(tput=tput.mean(dim=0), backlog=ep.backlog)
-        reward = self._reward_fn(obs)
+        return self._scored(ep, static, obs, telem, self._reward_fn(obs))
+
+    def _scored(self, ep, static, obs, telem, reward):
+        """``(state, obs, reward, done[, info])`` after a decision window;
+        ``telem`` is the rollout's telemetry in a list (empty when off)."""
         done = ep.t >= self.episode_tti
         if self.resample_topology:
             state = TopoEnvState(ep=ep, static=static)
@@ -293,10 +322,18 @@ class CrrmEnv:
             state = ep
         if self.telemetry:
             info = {"telemetry": telem[0],
-                    "reward_components": reward_components(
-                        obs, telem[0], self.params.tti_s)}
+                    "reward_components": self._components(obs, telem[0])}
             return state, obs, reward, done, info
         return state, obs, reward, done
+
+    def _components(self, obs, telem):
+        """:func:`reward_components`, one env at a time along a batch."""
+        if obs.tput.dim() == 1:
+            return reward_components(obs, telem, self.params.tti_s)
+        per_env = [reward_components(env_slice(obs, b), env_slice(telem, b),
+                                     self.params.tti_s)
+                   for b in range(obs.tput.shape[0])]
+        return {k: torch.stack([c[k] for c in per_env]) for k in per_env[0]}
 
     def step_autoreset(self, state, action=None, reset_seed=None,
                        fairness_p=None):
@@ -304,7 +341,7 @@ class CrrmEnv:
 
         Both branches are computed and every leaf of the returned state is
         ``torch.where(done, fresh, stepped)``: no control flow on ``done``,
-        so a later batch axis needs none.  The *returned* obs/reward/done
+        as in :meth:`step_autoreset_batch`.  The *returned* obs/reward/done
         (and info) are the pre-reset ones; only the carried state jumps.
         Requires ``resample_topology=False``.
         """
@@ -319,7 +356,7 @@ class CrrmEnv:
                              "of the replacement episode)")
         out = self.step(state, action, fairness_p)
         state, done = out[0], out[3]
-        fresh, _ = self.reset(reset_seed)
+        fresh = _fresh_like(self.reset(reset_seed)[0], state)
         state = type(state)(*(
             None if new is None else torch.where(done, new, old)
             for new, old in zip(fresh, state)))
@@ -327,11 +364,73 @@ class CrrmEnv:
 
     # ------------------------------------------------------------- batched
     def reset_batch(self, seeds):
-        raise not_in_slice("CrrmEnv.reset_batch", "env batch axis")
+        """B episodes from B seeds: ``(states, EnvObs)`` with every leaf
+        leading with B -- the stack of ``reset(seed_b)``.  With
+        ``resample_topology`` each seed owns its UE field."""
+        outs = [self.reset(int(s)) for s in _seeds(seeds)]
+        return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
 
     def step_batch(self, states, actions=None, fairness_p=None):
-        raise not_in_slice("CrrmEnv.step_batch", "env batch axis")
+        """Advance B episodes, optionally under B actions ((B, n_cells,
+        n_subbands)) and B ``fairness_p`` scalars: row b is ``step`` of
+        env b.  Each env's radio side runs on its own draws; the MAC runs
+        batched.  Returns ``(states, EnvObs, reward (B,), done (B,)[,
+        info])``."""
+        if self.resample_topology:
+            ep, static = states.ep, states.static
+        else:
+            ep, static = states, self._static
+        power = None if actions is None else self._expand_action(actions)
+        draws = [self._draws(s, self.device) for s in ep.seed.tolist()]
+        ep, tput, *telem = self._fns.rollout(static, ep, self.tti_per_step,
+                                             draws, power, fairness_p)
+        obs = EnvObs(tput=tput.mean(dim=1), backlog=ep.backlog)
+        reward = torch.stack([self._reward_fn(env_slice(obs, b))
+                              for b in range(tput.shape[0])])
+        return self._scored(ep, static, obs, telem, reward)
 
     def step_autoreset_batch(self, states, actions, reset_seeds,
                              fairness_p=None):
-        raise not_in_slice("CrrmEnv.step_autoreset_batch", "env batch axis")
+        """Batched :meth:`step_autoreset`: env b restarts from
+        ``reset_seeds[b]`` when it finishes, the others run on (each keeps
+        its own TTI counter).  Requires ``resample_topology=False``."""
+        if self.resample_topology:
+            raise ValueError(
+                "step_autoreset_batch requires resample_topology=False: "
+                "the reset would recompute the radio chain at every "
+                "episode boundary; drive resampled episodes with explicit "
+                "reset_batch() calls instead")
+        out = self.step_batch(states, actions, fairness_p)
+        states, done = out[0], out[3]
+        fresh = _fresh_like(self.reset_batch(reset_seeds)[0], states)
+        states = type(states)(*(
+            None if new is None else torch.where(
+                done.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+            for new, old in zip(fresh, states)))
+        return (states,) + out[1:]
+
+
+def _fresh_like(fresh, state):
+    """A reset state with the fault leaf the stepped one carries: all-UP,
+    what the engine seeds a fault-free reset with at its first step."""
+    if fresh.cell_state is None and state.cell_state is not None:
+        fresh = fresh._replace(cell_state=torch.zeros_like(state.cell_state))
+    return fresh
+
+
+def _seeds(seeds):
+    """A batch of seeds as Python ints."""
+    if isinstance(seeds, torch.Tensor):
+        return seeds.tolist()
+    return [int(s) for s in seeds]
+
+
+def _stack(items):
+    """Stack NamedTuples (nested ones too) leaf by leaf along a new axis 0;
+    ``None`` stays ``None``."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return type(first)(*(_stack(list(leaves)) for leaves in zip(*items)))
+    return torch.stack(items)

@@ -11,8 +11,11 @@ PF weights, round-robin cursor) to ``alloc[i, k]``, the RBs granted to UE
   to the lowest UE index);
 * ``pf``       -- RBs split in proportion to the alpha-fair weight.
 
-Mesh sharding (``ue_axis``) and the soft max_cqi of the differentiable
-engine wait for later slices of the port.
+Every policy also takes a batch of envs: ``(B, n_ue, K)`` masks with
+``(B, n_ue)`` attachments (and a ``(B,)`` cursor), reduced per cell through
+the flat-id segment reductions of ``mac.segments``.  Mesh sharding
+(``ue_axis``) and the soft max_cqi of the differentiable engine wait for
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ _ALPHA_MAX = 63.0
 
 
 def _cell_mask(active, a, n_cells):
-    """M[i, j, k] = UE i is active on subband k and attached to cell j."""
+    """M[..., i, j, k] = UE i is active on subband k and attached to j."""
     cells = torch.arange(n_cells, device=a.device)
-    onehot = a.long()[:, None] == cells[None, :]
-    return active[:, None, :] & onehot[:, :, None]
+    onehot = a.long()[..., None] == cells
+    return active[..., :, None, :] & onehot[..., None]
 
 
 def allocate_rr(active, a, n_cells, n_rb, cursor):
@@ -41,17 +44,20 @@ def allocate_rr(active, a, n_cells, n_rb, cursor):
     sums; the stable sort keeps each cell's UEs in index order.
     """
     a = a.long()
-    act_i = active.to(torch.int32)                     # (n_ue, K)
-    counts = segments.segment_sum(act_i, a, n_cells)   # (n_cells, K)
-    order = torch.sort(a, stable=True).indices
-    csum = torch.cumsum(act_i[order], dim=0, dtype=torch.int32)
-    offs = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts
-    rank_sorted = csum - 1 - offs[a[order]]
-    rank = torch.empty_like(rank_sorted)
-    rank[order] = rank_sorted
-    n_act = torch.clamp(counts[a], min=1)
+    act_i = active.to(torch.int32)                     # (..., n_ue, K)
+    counts = segments.segment_sum(act_i, a, n_cells)   # (..., n_cells, K)
+    order = torch.sort(a, dim=-1, stable=True).indices
+    by_row = order[..., None].expand_as(act_i)
+    csum = torch.cumsum(torch.gather(act_i, -2, by_row), dim=-2,
+                        dtype=torch.int32)
+    offs = torch.cumsum(counts, dim=-2, dtype=torch.int32) - counts
+    rank_sorted = csum - 1 - segments.take(offs, torch.gather(a, -1, order))
+    rank = torch.empty_like(rank_sorted).scatter_(-2, by_row, rank_sorted)
+    n_act = torch.clamp(segments.take(counts, a), min=1)
     nrb = torch.full_like(n_act, n_rb)
     base = torch.div(nrb, n_act, rounding_mode="floor")
+    if isinstance(cursor, torch.Tensor) and cursor.dim():
+        cursor = cursor[:, None, None]                 # one per env
     # floor-mod (torch.remainder), as jnp's %, never torch.fmod
     extra = torch.remainder(rank - cursor, n_act) < torch.remainder(nrb, n_act)
     return torch.where(active, (base + extra).to(torch.float32), 0.0)
@@ -60,10 +66,10 @@ def allocate_rr(active, a, n_cells, n_rb, cursor):
 def allocate_max_cqi(active, cqi, a, n_cells, n_rb):
     """Winner-take-all: the best-CQI active UE gets the cell's whole grid."""
     M = _cell_mask(active, a, n_cells)
-    score = torch.where(M, cqi[:, None, :], -1)         # (n_ue, n_cells, K)
-    winner = torch.argmax(score, dim=0)                 # first max: lowest UE
-    mine = winner[a.long()]                             # (n_ue, K)
-    i = torch.arange(active.shape[0], device=active.device)[:, None]
+    score = torch.where(M, cqi[..., :, None, :], -1)    # (..., n_ue, cells, K)
+    winner = torch.argmax(score, dim=-3)                # first max: lowest UE
+    mine = segments.take(winner, a)                     # (..., n_ue, K)
+    i = torch.arange(active.shape[-2], device=active.device)[:, None]
     return torch.where(active & (mine == i), float(n_rb), 0.0)
 
 
@@ -72,10 +78,9 @@ def allocate_pf(active, log_w, a, n_cells, n_rb):
     neg = float("-inf")
     log_w = torch.where(active, log_w, neg)
     cell_max = segments.segment_max(log_w, a, n_cells, fill=neg)
-    a = a.long()
-    w = torch.exp(log_w - cell_max[a])                  # in (0, 1], 0 if idle
+    w = torch.exp(log_w - segments.take(cell_max, a))   # in (0, 1], 0 if idle
     w = torch.where(active, w, 0.0)
-    denom = segments.segment_sum(w, a, n_cells)[a]
+    denom = segments.take(segments.segment_sum(w, a, n_cells), a)
     share = torch.where(denom > 0.0, w / torch.clamp(denom, min=1e-30), 0.0)
     return n_rb * share
 
@@ -117,18 +122,22 @@ def pf_alpha(fairness_p):
 
 
 def pf_log_weights_ewma(rate, avg, fairness_p):
-    """log(rate / avg**alpha): the temporal PF metric over EWMA throughput."""
+    """log(rate / avg**alpha): the temporal PF metric over EWMA throughput.
+    A (B,) ``fairness_p`` holds one exponent per env of a batch."""
+    alpha = pf_alpha(fairness_p)
+    if isinstance(alpha, torch.Tensor) and alpha.dim():
+        alpha = alpha[:, None, None]
     return (torch.log(torch.clamp(rate, min=1e-12))
-            - pf_alpha(fairness_p) * torch.log(torch.clamp(avg, min=1e-3)))
+            - alpha * torch.log(torch.clamp(avg, min=1e-3)))
 
 
 def served_bits(alloc, se, backlog, rb_bw_hz, tti_s, floor=1e-30):
     """Bits drained per (UE, subband) in one TTI: grant capacity, capped by
     the UE's total backlog (``inf - bits`` stays ``inf`` for full buffer)."""
-    cap = alloc * rb_bw_hz * se * tti_s                # (n_ue, K) bits
+    cap = alloc * rb_bw_hz * se * tti_s                # (..., n_ue, K) bits
     tot = cap.sum(dim=-1)
     scale = torch.where(tot > 0.0,
                         torch.clamp(backlog / torch.clamp(tot, min=floor),
                                     max=1.0),
                         0.0)
-    return cap * scale[:, None]
+    return cap * scale[..., None]

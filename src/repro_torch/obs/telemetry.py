@@ -8,10 +8,12 @@ from values the step already produced: no draws, no state, so the
 trajectory is bit-identical with telemetry on or off.
 
 Optional leaves are ``None`` where a regime cannot produce them:
-``dirty_rows`` exists only in ``radio_mode="incremental"``; ``active_ues``,
-``cells_down`` and ``reattach_events`` belong to churn and faults, later
-slices of the port, and stay ``None``.  The mesh reductions (``ue_axes``)
-wait for the mesh slice.
+``dirty_rows`` exists only in ``radio_mode="incremental"``, ``active_ues``
+only under churn (the UE axis is then capacity-padded, and Jain's index
+counts the live population), ``cells_down`` and ``reattach_events`` only
+under faults.  A batch of envs gives every leaf a leading B axis (the
+per-cell sums go through the flat-id segment reductions).  The mesh
+reductions (``ue_axes``) wait for the mesh slice.
 """
 from __future__ import annotations
 
@@ -39,9 +41,9 @@ class Telemetry(NamedTuple):
     buffer_bits: Any    # f32 total finite backlog after the TTI
     jain: Any           # f32 Jain fairness of per-UE delivered throughput
     dirty_rows: Any     # i32 radio rows recomputed | None (dense modes)
-    active_ues: Any = None       # i32 live UEs | None (churn: later slice)
-    cells_down: Any = None       # i32 cells in outage | None (faults)
-    reattach_events: Any = None  # i32 serving changes | None (faults)
+    active_ues: Any = None       # i32 live UEs | None (no churn)
+    cells_down: Any = None       # i32 cells in outage | None (no faults)
+    reattach_events: Any = None  # i32 serving changes | None (no faults)
 
 
 def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
@@ -54,34 +56,38 @@ def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
     delivered ``bits``/``tput`` and the post-drain ``backlog``;
     ``harq_stats`` is ``(acks, nacks, retx, dropped_bits)``.  Jain's
     fairness index over the per-UE delivered throughput is
-    ``(sum x)^2 / (n * sum x^2)``, 0.0 for an idle TTI.
+    ``(sum x)^2 / (n * sum x^2)``, 0.0 for an idle TTI, with ``n`` the
+    live population ``active_count`` under churn.  ``cells_down`` and
+    ``reattached`` are the fault process's counts, published as given.
+    Every input may lead with a batch axis.
     """
     if ue_axes is not None:
         raise not_in_slice("tti_telemetry(ue_axes=...)", "mesh")
-    for name, value in (("active_count", active_count),
-                        ("cells_down", cells_down),
-                        ("reattached", reattached)):
-        if value is not None:
-            raise not_in_slice(f"tti_telemetry({name}=...)",
-                               "churn" if name == "active_count" else "faults")
     acks, nacks, retx, dropped = harq_stats
     served = segments.segment_sum(bits.to(torch.float32), a, n_cells)
     granted = segments.segment_sum(alloc.sum(dim=-1).to(torch.float32), a,
                                    n_cells)
-    occupancy = torch.where(torch.isfinite(backlog), backlog, 0.0).sum()
-    s = tput.sum()
-    ss = (tput * tput).sum()
-    jain = torch.where(ss > 0.0, s * s / (n_ues * ss), 0.0)
+    occupancy = torch.where(torch.isfinite(backlog), backlog,
+                            0.0).sum(dim=-1)
+    s = tput.sum(dim=-1)
+    ss = (tput * tput).sum(dim=-1)
+    denom = (n_ues if active_count is None
+             else torch.clamp(active_count, min=1))
+    jain = torch.where(ss > 0.0, s * s / (denom * ss), 0.0)
     return Telemetry(served_bits=served, granted_rb=granted,
                      harq_acks=acks, harq_nacks=nacks, harq_retx=retx,
                      dropped_bits=dropped, ho_events=ho_events,
-                     buffer_bits=occupancy, jain=jain, dirty_rows=n_dirty)
+                     buffer_bits=occupancy, jain=jain, dirty_rows=n_dirty,
+                     active_ues=active_count, cells_down=cells_down,
+                     reattach_events=reattached)
 
 
-def stack(telems) -> Telemetry:
+def stack(telems, dim: int = 0) -> Telemetry:
     """Stack a sequence of per-TTI :class:`Telemetry` leaf by leaf to
-    ``(n_tti, ...)``; ``None`` leaves stay ``None``."""
-    return Telemetry(*(None if leaves[0] is None else torch.stack(leaves)
+    ``(n_tti, ...)`` (``dim=1``: to ``(B, n_tti, ...)`` for a batch);
+    ``None`` leaves stay ``None``."""
+    return Telemetry(*(None if leaves[0] is None
+                       else torch.stack(leaves, dim=dim)
                        for leaves in zip(*telems)))
 
 
@@ -97,8 +103,8 @@ def summarize(telem: Telemetry, tti_s: float | None = None) -> dict:
     """Reduce a telemetry stack to a flat dict of python-float KPIs.
 
     Accepts per-TTI stacks of any leading shape -- a rollout's
-    ``(n_tti, ...)`` or a single step -- and aggregates over all leading
-    axes.  ``tti_s`` converts the served-bits total into the busiest
+    ``(n_tti, ...)``, a batch's ``(B, n_tti, ...)`` or a single step --
+    and aggregates over all leading axes.  ``tti_s`` converts the served-bits total into the busiest
     cell's mean rate (Mbit/s).
     """
     t = Telemetry(*(_host(x) for x in telem))

@@ -1,11 +1,76 @@
-"""UE mobility: bounded random walks and the exact-count window movers.
+"""UE mobility: bounded random walks, the exact-count window movers, and
+the birth-death UE process.
 
-The birth-death churn process of ``repro.sim.mobility`` waits for the
-churn slice of the port.
+:class:`ChurnConfig` and :func:`birth_death_step` are the digital twin's
+churn: over a capacity-padded ``active`` mask, UEs depart with
+exponential lifetimes and arrive (Poisson) into the lowest free slots.
+The step takes its draws as tensors (``mac.engine.Draws.churn_birth`` /
+``churn_death``), so replayed draws reproduce the reference exactly.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class ChurnConfig(NamedTuple):
+    """The birth-death process parameters.
+
+    The UE axis is *capacity-padded*: ``n_ues`` is the slot capacity, the
+    live population the ``active`` mask's popcount.  Stationary mean
+    occupancy is ``arrival_rate_hz * mean_lifetime_s`` (M/M/inf); arrivals
+    beyond free capacity are dropped.
+    """
+
+    arrival_rate_hz: float        # Poisson arrival intensity, UEs/second
+    mean_lifetime_s: float        # exponential lifetime -> per-TTI departure
+    max_arrivals_per_tti: int     # static cap = the birth dirty-row budget
+    newborn_backlog_bits: float = 0.0   # seed backlog (inf = full buffer)
+
+
+def churn_rates(tti_s: float, churn: ChurnConfig):
+    """``(p_depart, lam)``: each active UE's per-TTI departure probability
+    and the Poisson mean of the per-TTI arrivals."""
+    return (min(1.0, tti_s / churn.mean_lifetime_s),
+            churn.arrival_rate_hz * tti_s)
+
+
+def birth_death_step(n_poisson, depart, active, churn: ChurnConfig):
+    """One TTI of the birth-death process over the capacity-padded mask.
+
+    ``depart`` is the (n,) Bernoulli(``p_depart``) draw and ``n_poisson``
+    the 0-dim Poisson(``lam``) draw of :func:`churn_rates`.  Departures
+    first (only active slots leave), then ``min(n_poisson,
+    max_arrivals_per_tti, free slots)`` newborns take the lowest-index free
+    slots by a cumsum rank.  Returns ``(active, born, n_born)``: the updated
+    mask, the newborn mask and its int32 popcount; no host read.
+    """
+    active = active & ~(depart & active)
+    n_arrive = torch.clamp(n_poisson, max=churn.max_arrivals_per_tti).to(
+        torch.int32)
+    free = ~active
+    free_rank = torch.cumsum(free.to(torch.int32), dim=-1) - 1
+    born = free & (free_rank < n_arrive[..., None])
+    return active | born, born, born.sum(dim=-1).to(torch.int32)
+
+
+def random_moves(gen: torch.Generator, n_ues: int, n_move: int,
+                 extent_m: float):
+    """Pick ``n_move`` distinct UEs and fresh uniform positions for them
+    (teleport mobility, z = 1.5 m).  Returns (idx (n_move,), xyz
+    (n_move, 3))."""
+    idx = torch.randperm(n_ues, generator=gen, device=gen.device)[:n_move]
+    xy = torch.rand((n_move, 2), generator=gen, device=gen.device) * extent_m
+    z = torch.full((n_move, 1), 1.5, device=gen.device)
+    return idx, torch.cat([xy, z], dim=1)
+
+
+def random_walk(gen: torch.Generator, positions, idx, step_m: float,
+                extent_m: float):
+    """Displace the selected UEs by a uniform step, clamped at borders."""
+    d = walk_steps(gen, idx.shape[0], step_m)
+    return apply_walk(positions[idx], d, extent_m)
 
 
 def walk_steps(gen: torch.Generator, n: int, step_m: float):

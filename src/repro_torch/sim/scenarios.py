@@ -9,9 +9,9 @@ field (e.g. shrink ``n_ues`` for CI) without losing the preset's identity:
 >>> from repro_torch.core.crrm import CRRM
 >>> sim = CRRM(make_scenario("dense_urban", n_ues=50), device="cpu")
 
-``outage_storm`` builds its parameters, but running it (``CRRM``,
-``CrrmEnv``) raises ``NotImplementedError`` until the faults slice of the
-port.  ``repro_torch.env.CrrmEnv`` accepts a scenario name directly.
+``outage_storm`` bakes in a ``FaultConfig``: ``CRRM.episode_fns`` and
+``CrrmEnv`` run its fault process by default.  ``repro_torch.env.CrrmEnv``
+accepts a scenario name directly.
 """
 from __future__ import annotations
 

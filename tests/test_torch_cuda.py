@@ -367,3 +367,109 @@ def test_pairwise_dist_rejects_wrong_inputs(cuda):
         pdk.pairwise_dist(U[:0], C)
     with pytest.raises(ValueError, match="contiguous"):
         pdk.pairwise_dist(U, torch.ones((3, 2), device=cuda).t())
+
+
+@pytest.mark.parametrize("n_born", [0, 9, 16])
+@pytest.mark.parametrize("fading", [False, True])
+def test_fused_mover_and_newborn_rows_match_torch(cuda, n_born, fading):
+    """The churn path's one index -- the padded mover window and the
+    padded newborn rows (a TTI with no birth: all padding on row 0; one at
+    the cap of 16) -- through the kernel equals the torch row recompute on
+    the same state."""
+    from repro_torch.mac.engine import scatter_born
+    p = CRRM_parameters(n_ues=3000, n_cells=19, seed=6,
+                        pathloss_model_name="UMa", power_W=10.0,
+                        rayleigh_fading=fading, radio_mode="incremental")
+    sim = CRRM(p, device=cuda)
+    rs = sim.radio_static()
+    cfg, U = rs.cfg, sim.U._data.clone()
+    fad = sim.fading._data.clone() if fading else None
+    g = torch.Generator(device=cuda).manual_seed(n_born)
+    born = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    born[torch.randperm(3000, generator=g, device=cuda)[:n_born]] = True
+    born_idx = radio.dirty_indices(born, 16)
+    n = torch.tensor(n_born, dtype=torch.int32, device=cuda)
+    scatter_born(U, born_idx, torch.rand((16, 3), generator=g, device=cuda)
+                 * torch.tensor([2000.0, 2000.0, 0.0], device=cuda)
+                 + torch.tensor([0.0, 0.0, 1.5], device=cuda), n)
+    if fading:
+        scatter_born(fad, born_idx, radio.draw_fading(cfg, g, 16, 19), n)
+    movers, _ = radio.window_indices(torch.tensor(2990, device=cuda), 300,
+                                     3000)
+    U[movers.long()] += 10.0
+    idx = torch.cat([movers, born_idx])
+    out = {}
+    for be, upd in (("torch", radio.radio_update_rows),
+                    ("fused", radio.radio_update_rows_fused)):
+        st = radio.radio_init(cfg, sim.U._data, rs.C, rs.bore,
+                              sim.fading._data if fading else None, rs.P)
+        before = fk.fused_sinr_accumulate.launches
+        out[be] = upd(cfg, st, U, rs.C, rs.bore, fad, rs.P, idx)
+        assert fk.fused_sinr_accumulate.launches - before == (be == "fused")
+    want = radio.radio_forward(rs, U, fad=fad)
+    G0 = radio.pathgains(cfg, U, rs.C, rs.bore)
+    meas = radio.rsrp(G0 if fad is None else radio.apply_fading(G0, fad),
+                      rs.P).sum(dim=2)
+    top2 = torch.topk(meas, 2, dim=1).values
+    ties = (top2[:, 0] - top2[:, 1]) < 1e-5 * top2[:, 0]
+    db = phy.sinr_to_db(want.gamma)
+    thr = phy.table("CQI_SINR_THRESHOLDS_DB", cuda)
+    edge = ((db[..., None] - thr).abs() < 1e-4).any(dim=-1) | ties[:, None]
+    f, t = out["fused"], out["torch"]
+    assert torch.equal(f.a[~ties], t.a[~ties])
+    assert torch.equal(f.a[~ties], want.a[~ties])
+    assert torch.equal(f.cqi[~edge], t.cqi[~edge])
+    assert torch.equal(f.se[~edge], t.se[~edge])
+
+
+def test_engine_churn_fused_matches_torch_on_cuda(cuda):
+    """Churn in the incremental engine: one kernel launch per TTI (movers
+    and newborns in one index), the same trajectory as the torch rows."""
+    from repro_torch.mac.engine import seed_churn_state
+    from repro_torch.sim.mobility import ChurnConfig
+    p = CRRM_parameters(n_ues=4000, n_cells=19, seed=3,
+                        pathloss_model_name="UMa", power_W=10.0,
+                        scheduler_policy="pf", fairness_p=0.5,
+                        mobility_step_m=20.0, mobility_move_frac=0.1,
+                        radio_mode="incremental")
+    churn = ChurnConfig(arrival_rate_hz=1400.0, mean_lifetime_s=2.0,
+                        max_arrivals_per_tti=7)
+    out = {}
+    for be in ("torch", "fused"):
+        sim = CRRM(p, device=cuda)
+        fns = sim.episode_fns(inc_backend=be, churn=churn, telemetry=True)
+        static = sim.episode_static()
+        state = seed_churn_state(sim.init_episode_state(), static, p)
+        before = fk.fused_sinr_accumulate.launches
+        s, t, tel = fns.rollout(static, state, 8, Draws(0, cuda))
+        out[be] = (t.cpu().numpy(), s.active.cpu().numpy())
+        launched = fk.fused_sinr_accumulate.launches - before
+        assert launched == (8 if be == "fused" else 0)
+        assert int(tel.active_ues[-1]) == int(s.active.sum())
+    np.testing.assert_array_equal(out["fused"][1], out["torch"][1])
+    np.testing.assert_allclose(out["fused"][0], out["torch"][0], rtol=1e-4,
+                               atol=1.0)
+
+
+@pytest.mark.parametrize("n_freq", [1, 4])
+def test_batched_segment_reductions_match_unbatched_deterministic(cuda,
+                                                                   n_freq):
+    """In deterministic mode the flat-id reductions over B envs equal the
+    B unbatched reductions on the card."""
+    from repro_torch.mac import segments
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, n, m = 8, 100_000, 21
+    seg = torch.randint(0, m, (B, n), generator=g, device=cuda,
+                        dtype=torch.int32)
+    data = torch.rand((B, n, n_freq), generator=g, device=cuda)
+    torch.use_deterministic_algorithms(True)
+    try:
+        s_b = segments.segment_sum(data, seg, m)
+        x_b = segments.segment_max(data, seg, m)
+        for b in range(B):
+            assert torch.equal(s_b[b], segments.segment_sum(data[b], seg[b],
+                                                            m))
+            assert torch.equal(x_b[b], segments.segment_max(data[b], seg[b],
+                                                            m))
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -193,3 +193,25 @@ def test_stationary_served_tput_matches_the_graph():
             sim.params, sim.n_cells, sim.get_spectral_efficiency(),
             sim.get_CQI(), sim.get_attachment(), sim.get_backlog())
         assert torch.equal(got, sim.get_served_throughputs())
+
+
+def test_draws_fold_the_whole_seed():
+    """Distinct episode seeds give distinct draws: the seed is mixed
+    into 64 bits before the (lineage, 4 t + stream) offset is added, so
+    seeds that agree in their low 31 or 32 bits no longer collide, and
+    no lineage or stream repeats another's."""
+    Draws = t_engine.Draws
+    u = lambda seed, t=3: Draws(seed, "cpu").harq_uniform(t, 16)
+    for a, b in ((0, 2 ** 31), (1, 1 + 2 ** 32), (5, 5 + 2 ** 40), (0, -1)):
+        assert not torch.equal(u(a), u(b)), (a, b)
+    assert torch.equal(u(2 ** 31), u(2 ** 31))
+    d = Draws(7, "cpu")
+    streams = [d.harq_uniform(4, 16), d.churn_death(4, 2.0, 16).float(),
+               d.fault_uniform(4, 16), u(7, 5)]
+    g = d.generator(0, 4)
+    streams.append(torch.rand(16, generator=g))
+    for i in range(len(streams)):
+        for j in range(i + 1, len(streams)):
+            assert not torch.equal(streams[i], streams[j]), (i, j)
+    with pytest.raises(ValueError, match="32 bits"):
+        d.generator(0, 2 ** 30)

@@ -30,7 +30,8 @@ def test_the_scan_covers_every_package_of_the_port():
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
-              "repro_torch.sim.faults", "repro_torch.kernels.pairwise_dist",
+              "repro_torch.sim.faults", "repro_torch.sim.shadowing",
+              "repro_torch.kernels.pairwise_dist",
               "repro_torch.kernels.ref"):
         assert m in names, m
 

@@ -58,15 +58,16 @@ def test_params_validation_matches_reference():
 
 
 def test_params_faults_wait_for_their_slice():
-    """A FaultConfig is a valid field; running the process waits for the
-    faults slice."""
+    """A FaultConfig is a valid field, and since the faults slice ``CRRM``
+    takes it (it raised before): the engine runs the process by
+    default."""
     from repro_torch.core.crrm import CRRM
     from repro_torch.sim.faults import FaultConfig
     with pytest.raises(ValueError, match="FaultConfig"):
         t_params.CRRM_parameters(faults=object())
     p = t_params.CRRM_parameters(n_ues=4, faults=FaultConfig(5.0))
-    with pytest.raises(NotImplementedError, match="faults"):
-        CRRM(p, device="cpu")
+    sim = CRRM(p, device="cpu")
+    assert sim.params.faults == FaultConfig(5.0)
 
 
 def _grid():

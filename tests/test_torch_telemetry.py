@@ -76,11 +76,15 @@ def test_stack_and_later_slice_arguments():
     one = t_tel.tti_telemetry(args[0], args[1], *targs)
     st = t_tel.stack([one, one])
     assert st.served_bits.shape == (2, args[0]) and st.active_ues is None
-    for kw, name in ((dict(ue_axes=("ue",)), "mesh"),
-                     (dict(active_count=torch.tensor(3)), "churn"),
-                     (dict(cells_down=torch.tensor(1)), "faults")):
-        with pytest.raises(NotImplementedError, match=name):
-            t_tel.tti_telemetry(args[0], args[1], *targs, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        t_tel.tti_telemetry(args[0], args[1], *targs, ue_axes=("ue",))
+    # the churn and fault counts are published as given (ported)
+    got = t_tel.tti_telemetry(args[0], args[1], *targs,
+                              active_count=torch.tensor(3),
+                              cells_down=torch.tensor(1),
+                              reattached=torch.tensor(2))
+    assert (int(got.active_ues), int(got.cells_down),
+            int(got.reattach_events)) == (3, 1, 2)
 
 
 BASE = dict(n_ues=40, n_cells=7, seed=2, pathloss_model_name="UMa",
