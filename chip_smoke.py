@@ -55,9 +55,24 @@ Phases, each printing its own lines:
               single steps, launches per TTI of each; row b against
               ``reset(seed_b)`` + ``step`` in deterministic mode (bit for
               bit, or within rtol 1e-6 with the leaves that differ named);
-              one ``resample_topology`` batched reset.
+              one ``resample_topology`` batched reset;
+11. twin   -- a watchdog-armed ``TwinServer`` over the million-UE churn
+              episode (``inc_backend="fused"``, chunks of 50 TTIs, a
+              checkpoint after every chunk): fused_sinr launches per chunk
+              (50), ms per chunk guarded and not and the parts of one chunk,
+              the seconds of a blocking save, of save_async's caller block
+              and of a restore, peak memory, active UEs; a kill and restore
+              re-served bit for bit in deterministic mode; an injected NaN,
+              a raised chunk and a timed-out chunk recovered on
+              ``"fused"``; then the reference bench's twin arm (20 000 x 57
+              dense: ms/TTI of serving beside the churn-free rollout);
+12. chaos  -- ``repro_torch.robust.chaos.drill`` at ``outage_storm`` with
+              100 000 UEs, incremental ``inc_backend="auto"`` (the faults
+              and handover take the torch rows, and the drill says so): the
+              recovery time of each injection in healthy chunks, the
+              history lines and ``CHAOS_OK``.
 
-Each path (pairwise, episode, env, churn, faults, batch) sets every
+Each path (pairwise, episode, env, churn, faults, batch, twin) sets every
 kernel's launch count to 0 just before it and reads the counts just after.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
@@ -72,6 +87,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -1210,6 +1226,311 @@ def phase_batch():
     del env_r, st_r
     torch.cuda.empty_cache()
 
+
+def timed_ms(fn):
+    """``(fn(), host-clock ms)``, synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def twin_dir():
+    """A scratch directory for checkpoints inside the checkout's build/."""
+    import tempfile
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="twin-", dir=root)
+
+
+def phase_twin():
+    """A watchdog-armed TwinServer over the million-UE churn episode, the
+    dirty rows through fused_sinr; then the reference bench's twin arm."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.kernels import fused_sinr as fk
+    from repro_torch.mac.engine import Draws
+    from repro_torch.obs import telemetry as obs_telemetry
+    from repro_torch.robust import chaos, guard
+    from repro_torch.robust.watchdog import WatchdogConfig
+    from repro_torch.sim.mobility import ChurnConfig
+    from repro_torch.twin.server import TwinServer
+    n_ues, chunk, n_tti = 1_000_000, 50, 150
+    launches = lambda: fk.fused_sinr_accumulate.launches
+    torch.cuda.reset_peak_memory_stats()
+    with twin_dir() as td:
+        sim = CRRM(CRRM_parameters(n_ues=n_ues, radio_mode="incremental",
+                                   **EPISODE))
+        wd = WatchdogConfig(max_retries=3, backoff_s=0.0,
+                            ckpt_every_chunks=1)
+        t0 = time.perf_counter()
+        srv = TwinServer(sim, ChurnConfig(**CHURN_1M), chunk_tti=chunk,
+                         ckpt_dir=td, keep_last=2, inc_backend="fused",
+                         watchdog=wd)
+        torch.cuda.synchronize()
+        log("twin", f"{n_ues} x 127 TwinServer under {CHURN_1M}, chunks of "
+            f"{chunk} TTIs, inc_backend={srv.inc_backend!r} (rows "
+            f"{srv.fns.inc_backend!r}), watchdog {tuple(wd)}: set-up incl. "
+            f"the t=0 checkpoint {time.perf_counter() - t0:.2f} s")
+        # -- the twin path: counts to 0 just before, read just after -----
+        torch.cuda.synchronize()
+        zero_counts()
+        per_chunk, guarded_ms = [], []
+        for _ in range(3):
+            before = launches()
+            kpis, ms = timed_ms(srv.step_chunk)
+            per_chunk.append(launches() - before)
+            guarded_ms.append(ms)
+        counts = launch_counts()
+        log("twin", f"path: launches {counts} over {n_tti} TTIs; fused_sinr "
+            f"per chunk {per_chunk}; active_ues {kpis['active_ues']:.0f} at "
+            f"t={kpis['t']:.0f}")
+        if per_chunk != [chunk] * 3 or counts["fused_sinr"] != n_tti:
+            raise AssertionError(f"expected {chunk} fused_sinr launches per "
+                                 f"chunk, got {per_chunk}")
+        if not (torch.isfinite(srv.last_tput).all()
+                and srv.last_tput.shape == (chunk, n_ues)
+                and 0 < kpis["active_ues"] < n_ues
+                and all(math.isfinite(v) for v in kpis.values())):
+            raise AssertionError("twin: bad throughput or KPIs")
+        # -- the serving cost, guarded and not, and its parts ------------
+        srv.watchdog = None
+        plain_ms = [timed_ms(srv.step_chunk)[1] for _ in range(2)]
+        srv.watchdog = wd
+        out, ms_chunk = timed_ms(lambda: srv._chunk(
+            srv.static, srv.state, srv.power, srv.fairness))
+        ok, ms_guard = timed_ms(lambda: guard.carry_ok(out[0]))
+        _, ms_sum = timed_ms(lambda: obs_telemetry.summarize(
+            out[2], tti_s=sim.params.tti_s))
+        del out
+        # the same chunk without telemetry, and a profile of one TTI
+        quiet = sim.episode_fns(churn=srv.churn, inc_backend="fused")
+        draws = Draws(int(srv.state.seed), sim.device)
+        _, ms_quiet = timed_ms(lambda: quiet.rollout(
+            srv.static, srv.state, chunk, draws, action=srv.power,
+            fairness_p=srv.fairness))
+        log("twin", "guarded serving ms per chunk (chunk, guard, summary, "
+            "checkpoint) " + ", ".join(f"{ms:.3f}" for ms in guarded_ms)
+            + f" = {guarded_ms[-1] / chunk:.3f} ms/TTI; without the guarded "
+            "loop (chunk, summary) " + ", ".join(f"{ms:.3f}"
+                                                 for ms in plain_ms)
+            + f" = {plain_ms[-1] / chunk:.3f} ms/TTI")
+        log("twin", f"parts of one chunk: rollout {ms_chunk:.3f} ms "
+            f"({ms_chunk / chunk:.3f} ms/TTI; without telemetry "
+            f"{ms_quiet / chunk:.3f} ms/TTI), guard {ms_guard:.3f} ms "
+            f"(carry_ok={ok}), summary {ms_sum:.3f} ms")
+        device_breakdown(types.SimpleNamespace(
+            rollout=lambda st, s, n, d: srv.fns.rollout(
+                st, s, n, d, action=srv.power, fairness_p=srv.fairness)),
+            srv.static, srv.state, draws, phase="twin")
+        del quiet
+        # -- checkpoint costs at 1M ---------------------------------------
+        step, ms_save = timed_ms(srv.checkpoint)
+        th, ms_block = timed_ms(lambda: srv.checkpoint(block=False))
+        t0 = time.perf_counter()
+        th.join()
+        s_write = time.perf_counter() - t0
+        restored, ms_restore = timed_ms(srv.restore)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in srv.state if x is not None)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("twin", f"checkpoint of {nbytes / 2**30:.3f} GiB of state at "
+            f"t={step}: sync save {ms_save / 1e3:.3f} s; save_async blocks "
+            f"the caller {ms_block / 1e3:.3f} s, its writer ends "
+            f"{s_write:.3f} s later; restore {ms_restore / 1e3:.3f} s; peak "
+            f"device memory {peak:.2f} GiB")
+        # -- kill and restore, bit for bit in deterministic mode ----------
+        srv.watchdog = None
+        torch.use_deterministic_algorithms(True)
+        try:
+            srv.checkpoint()
+            ref = [srv.step_chunk() for _ in range(2)]
+            tput, final = srv.last_tput, srv.state
+            t_new = srv.restore()
+            again = [srv.step_chunk() for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not (leaves_equal(final, srv.state) and again == ref
+                and torch.equal(tput, srv.last_tput)):
+            raise AssertionError("twin: restore-resume is not bitwise in "
+                                 "deterministic mode")
+        log("twin", f"deterministic mode: restored t={t_new}, re-served 2 "
+            f"chunks: every leaf, the throughput and the KPI dicts equal "
+            f"the uninterrupted run bit for bit")
+        # -- injected faults under the watchdog, on the route it began on -
+        srv.watchdog = wd
+        srv.checkpoint()                 # the rollback target
+        fns = srv.fns
+        t_before, before = srv.t, launches()
+        chaos._poison(srv)
+        _, ms_nan = timed_ms(srv.step_chunk)
+        nan_launches = launches() - before
+        real, boom = srv._chunk, {"armed": True}
+
+        def explode_once(*a):
+            if boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected kernel failure")
+            return real(*a)
+
+        srv._chunk = explode_once
+        before = launches()
+        _, ms_crash = timed_ms(srv.step_chunk)
+        crash_launches = launches() - before
+        srv._chunk = real
+        if not (srv.t == t_before + 2 * chunk and srv.inc_backend == "fused"
+                and srv.fns is fns and crash_launches == chunk
+                and nan_launches == 2 * chunk
+                and any("GuardViolation" in h for h in srv.fault_history)
+                and any("injected kernel failure" in h
+                        for h in srv.fault_history)
+                and not any("degrad" in h for h in srv.fault_history)):
+            raise AssertionError(f"twin: bad recovery: {srv.fault_history}")
+        log("twin", f"recovered on inc_backend={srv.inc_backend!r}: injected "
+            f"NaN {ms_nan / 1e3:.3f} s ({nan_launches} fused_sinr launches: "
+            f"the poisoned chunk and its retry), raised chunk "
+            f"{ms_crash / 1e3:.3f} s ({crash_launches} launches)")
+        # -- a timed-out chunk abandoned on its thread --------------------
+        timeout_s = max(1.0, 3 * guarded_ms[-1] / 1e3)
+        srv.watchdog = wd._replace(chunk_timeout_s=timeout_s)
+        armed = {"on": True}
+
+        def slow(*a):
+            # launch near the deadline, then hang on to the result: the
+            # recovery runs beside the abandoned worker's launches and state
+            if not armed["on"]:
+                return real(*a)
+            armed["on"] = False
+            time.sleep(0.9 * timeout_s)
+            out = real(*a)
+            time.sleep(timeout_s)
+            return out
+
+        srv._chunk = slow
+        torch.cuda.reset_peak_memory_stats()
+        t_before = srv.t
+        _, ms_timeout = timed_ms(srv.step_chunk)
+        for th in threading.enumerate():        # the abandoned worker
+            if "_worker" in th.name:
+                th.join(60)
+        torch.cuda.synchronize()
+        peak_to = torch.cuda.max_memory_allocated() / 2**30
+        srv._chunk, srv.watchdog = real, wd
+        srv.step_chunk()
+        if not (srv.t == t_before + 2 * chunk
+                and any("ChunkTimeout" in h for h in srv.fault_history)):
+            raise AssertionError("twin: the timed-out chunk was not fenced")
+        log("twin", f"timed-out chunk ({timeout_s:.2f} s limit) recovered in "
+            f"{ms_timeout / 1e3:.3f} s; peak device memory while the "
+            f"abandoned worker ran {peak_to:.2f} GiB; t={srv.t} after one "
+            f"more chunk")
+        for line in srv.fault_history:
+            log("twin", f"history: {line}")
+        del srv, sim, final, tput, restored
+    torch.cuda.empty_cache()
+    twin_faded()
+    twin_arm()
+
+
+def twin_faded():
+    """The checkpoint at its largest: the same twin with Rayleigh fading,
+    whose 1M x 127 fading factor the state carries under churn."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.sim.mobility import ChurnConfig
+    from repro_torch.twin.server import TwinServer
+    torch.cuda.reset_peak_memory_stats()
+    with twin_dir() as td:
+        srv = TwinServer(CRRM(CRRM_parameters(
+            n_ues=1_000_000, radio_mode="incremental", rayleigh_fading=True,
+            **EPISODE)), ChurnConfig(**CHURN_1M), chunk_tti=50,
+            ckpt_dir=td, keep_last=2, inc_backend="fused")
+        srv.step_chunk()
+        kpis, ms = timed_ms(srv.step_chunk)
+        _, ms_save = timed_ms(srv.checkpoint)
+        th, ms_block = timed_ms(lambda: srv.checkpoint(block=False))
+        t0 = time.perf_counter()
+        th.join()
+        s_write = time.perf_counter() - t0
+        _, ms_restore = timed_ms(srv.restore)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in srv.state if x is not None)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (srv.state.fad is not None and math.isfinite(
+                kpis["served_mbits"])):
+            raise AssertionError("twin: the faded state carries no fading")
+        log("twin", f"with Rayleigh fading (fad {tuple(srv.state.fad.shape)}"
+            f" carried): {ms / 50:.3f} ms/TTI unguarded; checkpoint of "
+            f"{nbytes / 2**30:.3f} GiB: sync save {ms_save / 1e3:.3f} s; "
+            f"save_async blocks the caller {ms_block / 1e3:.3f} s, its "
+            f"writer ends {s_write:.3f} s later; restore "
+            f"{ms_restore / 1e3:.3f} s; peak device memory {peak:.2f} GiB")
+        del srv
+    torch.cuda.empty_cache()
+
+
+def twin_arm():
+    """The reference bench's twin shape (benchmarks/paper_benches.py:695):
+    20 000 x 57, dense, 10 % walking, churn 0.35 n/s, chunks of 50; ms/TTI
+    of serving beside the churn-free rollout."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws, seed_churn_state
+    from repro_torch.sim.mobility import ChurnConfig
+    from repro_torch.twin.server import TwinServer
+    n, chunk = 20_000, 50
+    kw = dict(n_ues=n, n_cells=57, n_sectors=1, seed=3,
+              pathloss_model_name="UMa", power_W=10.0, scheduler_policy="pf",
+              fairness_p=0.5, mobility_step_m=20.0, mobility_move_frac=0.10,
+              traffic_model="poisson", radio_mode="dense",
+              traffic_params=dict(arrival_rate_hz=300.0,
+                                  packet_size_bits=12_000.0))
+    churn = ChurnConfig(arrival_rate_hz=0.35 * n, mean_lifetime_s=2.0,
+                        max_arrivals_per_tti=max(8, n // 512))
+
+    def rollout_ms(churn_cfg):
+        sim = CRRM(CRRM_parameters(**kw))
+        fns = sim.episode_fns(churn=churn_cfg)
+        static, state = sim.episode_static(), sim.init_episode_state()
+        if churn_cfg is not None:
+            state = seed_churn_state(state, static, sim.params)
+        fns.rollout(static, state, chunk, Draws(0, sim.device))   # warm
+        return min(timed_ms(lambda: fns.rollout(
+            static, state, chunk, Draws(0, sim.device)))[1]
+            for _ in range(3)) / chunk
+
+    ms_plain, ms_churn = rollout_ms(None), rollout_ms(churn)
+    srv = TwinServer(CRRM(CRRM_parameters(**kw)), churn, chunk_tti=chunk)
+    srv.step_chunk()                                           # warm
+    ms_serve = min(timed_ms(srv.step_chunk)[1] for _ in range(4)) / chunk
+    k = srv.step_chunk()
+    if not (0 < k["active_ues"] < n and k["served_mbits"] > 0):
+        raise AssertionError("twin arm: churn never engaged")
+    log("twin", f"arm {n} x 57 dense, churn {churn.arrival_rate_hz:g}/s "
+        f"cap {churn.max_arrivals_per_tti}: rollout {ms_plain:.3f} ms/TTI "
+        f"without churn, {ms_churn:.3f} with (overhead x"
+        f"{ms_churn / ms_plain:.3f}); TwinServer serving {ms_serve:.3f} "
+        f"ms/TTI (x{ms_serve / ms_plain:.3f} of the churn-free rollout); "
+        f"active_ues {k['active_ues']:.0f}")
+
+
+def phase_chaos():
+    """The chaos drill on the card: outage_storm at 100 000 UEs."""
+    from repro_torch.robust import chaos
+    with twin_dir() as td:
+        kpis = chaos.drill(td, n_ues=100_000, n_cells=19, chunk=20,
+                           radio_mode="incremental", inc_backend="auto")
+    rec = kpis.pop("recovery")
+    if not all(math.isfinite(v) for v in kpis.values()):
+        raise AssertionError("chaos: non-finite KPIs")
+    log("chaos", "recovery in healthy chunks: " + "; ".join(
+        f"{name.split(' (')[0]} {s:.3f} s = {x:.2f}"
+        for name, (s, x) in rec.items()))
+    log("chaos", "CHAOS_OK: twin survived NaN injection, chunk crash and "
+        "checkpoint corruption")
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -1221,6 +1542,8 @@ def main():
     phase_churn()
     phase_faults()
     phase_batch()
+    phase_twin()
+    phase_chaos()
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

@@ -107,3 +107,21 @@ def topo_env_state(data: dict, device) -> TopoEnvState:
     ``static`` field dicts."""
     return TopoEnvState(ep=episode_state(data["ep"], device),
                         static=episode_static(data["static"], device))
+
+
+def twin_tree(data: dict, device) -> dict:
+    """The port's serving tuple ``{"state", "power", "fairness"}`` from the
+    reference twin server's (numpy leaves; its state without the PRNG
+    ``key`` and with the episode ``seed`` given, which becomes the int64
+    ``seed`` leaf): saved with ``train.checkpoint.save``, it restores
+    into a port ``TwinServer``, which then serves the reference's state."""
+    fields = dict(data["state"])
+    seed = fields.pop("seed", None)
+    state = episode_state(fields, device)
+    if seed is not None:
+        state = state._replace(seed=torch.tensor(
+            int(np.asarray(seed)), dtype=torch.int64, device=device))
+    return {"state": state,
+            "power": to_tensor(np.asarray(data["power"], np.float32), device),
+            "fairness": to_tensor(np.asarray(data["fairness"], np.float32),
+                                  device)}

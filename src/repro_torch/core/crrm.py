@@ -263,13 +263,20 @@ class CRRM:
                                  cfg=self._radio_cfg)
 
     # ------------------------------------------------------------------ episodes
-    def init_episode_state(self):
+    def init_episode_state(self, seed=None):
         """The episode carry as an explicit ``EpisodeState``: buffers, PF
         EWMA (seeded from the single-shot served throughput), round-robin
         cursor, HARQ processes, serving cells / TTT counters, positions --
-        or what a previous ``sync_episode_state`` left on the simulator."""
+        or what a previous ``sync_episode_state`` left on the simulator --
+        and the episode seed as the int64 ``seed`` leaf (``None`` means
+        ``params.seed``), the counterpart of the reference's ``key=``.
+
+        ``U`` and ``backlog`` are the graph's own tensors: a caller that
+        writes into the state in place clones them first."""
         from repro_torch.mac.engine import EpisodeState
         n, dev, i32 = self.n_ues, self.device, torch.int32
+        if seed is None:
+            seed = self.params.seed
         avg0 = getattr(self, "_pf_avg", None)
         if avg0 is None:
             avg0 = self.get_served_throughputs().clone()
@@ -290,7 +297,8 @@ class CRRM:
             rr_cursor=torch.tensor(self.sched.cursor, dtype=i32, device=dev),
             harq_bits=hbits0, harq_retx=hretx0.to(i32),
             serving=a0.to(i32), ttt=ttt0.to(i32),
-            t=torch.tensor(0, dtype=i32, device=dev))
+            t=torch.tensor(0, dtype=i32, device=dev),
+            seed=torch.tensor(int(seed), dtype=torch.int64, device=dev))
 
     def episode_static(self):
         """The per-episode radio inputs (``EpisodeStatic``) off the graph."""

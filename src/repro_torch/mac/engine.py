@@ -64,8 +64,8 @@ class EpisodeState(NamedTuple):
     serving: Any     # (n_ues,) i32 serving-cell index (A3 carried state)
     ttt: Any         # (n_ues,) i32 A3 time-to-trigger counters
     t: Any           # i32 scalar: TTI index (drives the draws)
-    #: int64 scalar: the episode seed of ``repro_torch.env.CrrmEnv`` (the
-    #: counterpart of the reference's PRNG ``key``); None outside the env
+    #: int64 scalar: the episode seed the draws come from (the counterpart
+    #: of the reference's PRNG ``key``; ``CRRM.init_episode_state`` sets it)
     seed: Any = None
     active: Any = None       # (n_ues,) bool live-UE mask | None (no churn)
     fad: Any = None          # carried fading factor | None (no churn)

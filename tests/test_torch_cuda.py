@@ -473,3 +473,80 @@ def test_batched_segment_reductions_match_unbatched_deterministic(cuda,
                                                             m))
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ------------------------------------------------------------- the twin
+def _cuda_twin(cuda, tmp_path, **kw):
+    from repro_torch.sim.mobility import ChurnConfig
+    from repro_torch.twin.server import TwinServer
+    p = CRRM_parameters(n_ues=4000, n_cells=19, seed=3,
+                        pathloss_model_name="UMa", power_W=10.0,
+                        scheduler_policy="pf", fairness_p=0.5,
+                        mobility_step_m=20.0, mobility_move_frac=0.1,
+                        radio_mode="incremental")
+    churn = ChurnConfig(arrival_rate_hz=1400.0, mean_lifetime_s=2.0,
+                        max_arrivals_per_tti=7)
+    return TwinServer(CRRM(p, device=cuda), churn, chunk_tti=10,
+                      ckpt_dir=str(tmp_path), inc_backend="fused", **kw)
+
+
+def test_twin_fused_launches_once_per_tti(cuda, tmp_path):
+    """A churn twin under ``"fused"`` launches the kernel once per served
+    TTI, movers and newborns in one index."""
+    srv = _cuda_twin(cuda, tmp_path)
+    assert srv.fns.inc_backend == "fused"
+    before = fk.fused_sinr_accumulate.launches
+    for _ in range(3):
+        k = srv.step_chunk()
+    assert fk.fused_sinr_accumulate.launches - before == 30
+    assert k["t"] == 30.0 and 0 < k["active_ues"] <= 4000
+    assert torch.isfinite(srv.last_tput).all()
+
+
+def test_twin_restore_resumes_bitwise_deterministic(cuda, tmp_path):
+    """In deterministic mode a restored card twin resumes bit for bit: the
+    KPIs, throughput and every state leaf of two more chunks."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        srv = _cuda_twin(cuda, tmp_path)
+        srv.step_chunk()
+        srv.set_power(srv.power * 0.8)
+        srv.checkpoint()
+        k_ref = [srv.step_chunk() for _ in range(2)]
+        tput, final = srv.last_tput, srv.state
+        srv2 = _cuda_twin(cuda, tmp_path)
+        assert srv2.restore() == 10
+        assert srv2.state.U.device.type == "cuda"
+        k_res = [srv2.step_chunk() for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert k_res == k_ref
+    assert torch.equal(srv2.last_tput, tput)
+    for name, a, b in zip(final._fields, final, srv2.state):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+def test_twin_raised_chunk_recovers_on_fused(cuda, tmp_path):
+    """A chunk that raises under ``"fused"`` rolls back and retries on
+    ``"fused"``: the kernel keeps launching, no line degrades."""
+    from repro_torch.robust.watchdog import WatchdogConfig
+    srv = _cuda_twin(cuda, tmp_path, watchdog=WatchdogConfig(
+        max_retries=2, backoff_s=0.0))
+    fns = srv.fns
+    srv.step_chunk()
+    real, boom = srv._chunk, {"armed": True}
+
+    def explode_once(*a):
+        if boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("injected kernel failure")
+        return real(*a)
+
+    srv._chunk = explode_once
+    before = fk.fused_sinr_accumulate.launches
+    srv.step_chunk()
+    assert fk.fused_sinr_accumulate.launches - before == 10
+    assert srv.t == 20 and srv.inc_backend == "fused" and srv.fns is fns
+    assert not any("degrad" in line for line in srv.fault_history)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
 An ``ast`` scan of every module of ``src/repro_torch`` and of
-``chip_smoke.py`` finds no import of ``jax`` or ``repro``; a fresh
-interpreter that imports every port module has not loaded ``jax``; the
+``chip_smoke.py`` finds no import of ``jax``, ``repro`` or ``msgpack``; a
+fresh interpreter that imports every port module has not loaded ``jax``; the
 entry points default to the card and raise without one.
 """
 import ast
@@ -26,13 +26,17 @@ def port_files():
 def test_the_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in port_files()
                if PORT in p.parents}
-    assert {"core", "sim", "mac", "kernels", "obs", "env"} <= scanned
+    assert {"core", "sim", "mac", "kernels", "obs", "env", "train",
+            "robust", "twin"} <= scanned
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
               "repro_torch.sim.faults", "repro_torch.sim.shadowing",
               "repro_torch.kernels.pairwise_dist",
-              "repro_torch.kernels.ref"):
+              "repro_torch.kernels.ref", "repro_torch.tree",
+              "repro_torch.train.checkpoint", "repro_torch.robust.guard",
+              "repro_torch.robust.watchdog", "repro_torch.robust.chaos",
+              "repro_torch.twin.server"):
         assert m in names, m
 
 
@@ -55,7 +59,8 @@ def imported_roots(path):
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: p.name)
 def test_no_jax_or_reference_import(path):
-    bad = imported_roots(path) & {"jax", "jaxlib", "repro"}
+    # msgpack too: the card's machine has none (checkpoints write JSON)
+    bad = imported_roots(path) & {"jax", "jaxlib", "repro", "msgpack"}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 

@@ -322,3 +322,47 @@ def check_env_step(out_t, out_j):
 def bursty(ref):
     """Does the reference env step with bursty traffic (then eagerly)?"""
     return ref.params.traffic_model != "full_buffer"
+
+
+def seed_draws(ref_sim):
+    """A port ``draws(seed, device)`` factory replaying the reference's
+    episode key of ``seed`` (``radio.episode_key``: what
+    ``init_episode_state(key=None)`` and the reference's ``TwinServer``
+    draw from)."""
+    return lambda seed, device: ReplayDraws(j_radio.episode_key(int(seed)),
+                                            ref_sim)
+
+
+def reference_twin_tree(ref_server, seed):
+    """The reference ``TwinServer``'s serving tuple as numpy, its PRNG
+    ``key`` dropped and the episode ``seed`` given: the input of
+    ``convert.twin_tree``."""
+    state = {k: np_(v) for k, v in ref_server.state._asdict().items()
+             if v is not None and k != "key"}
+    state["seed"] = seed
+    return {"state": state, "power": np_(ref_server.power),
+            "fairness": np_(ref_server.fairness)}
+
+
+def first_divergence(tput_port, tput_ref, tti_s):
+    """The first TTI at which two ``(n_tti, n_ues)`` throughput stacks
+    differ beyond rtol 1e-4 (atol 1 bit/s), as ``(tti, sub_bit)``, or None.
+
+    ``sub_bit`` says whether at that TTI one side served some UE less than
+    one bit while the other did not serve it the same: the signature of a
+    drained-backlog residue.  ``served_bits`` drains ``cap * (B / cap)``,
+    which rounds to B or to B -/+ 1 ulp; a 1-ulp difference of the SE
+    decides which, and a 1-ulp residue (~1e-3 bits at 12 000) still counts
+    as demand and wins resource blocks at the next TTI.  Both packages do
+    this, each in either direction: it is the MAC's near tie (ROADMAP
+    queue 3), and the trajectories part there.
+    """
+    a, b = np_(tput_port), np_(tput_ref)
+    bad = ~np.isclose(a, b, rtol=RTOL_TPUT, atol=1.0)
+    if not bad.any():
+        return None
+    t = int(np.argwhere(bad.any(axis=1))[0, 0])
+    bits_a, bits_b = a[t] * tti_s, b[t] * tti_s
+    sub = lambda x: (x > 0.0) & (x < 1.0)
+    flip = (sub(bits_a) | sub(bits_b)) & (bits_a != bits_b)
+    return t, bool(flip.any())
