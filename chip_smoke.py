@@ -70,10 +70,39 @@ Phases, each printing its own lines:
               100 000 UEs, incremental ``inc_backend="auto"`` (the faults
               and handover take the torch rows, and the drill says so): the
               recovery time of each injection in healthy chunks, the
-              history lines and ``CHAOS_OK``.
+              history lines and ``CHAOS_OK``;
+13. diffopt -- the differentiable engine (``relax=``): the finite-
+              difference check of ``tests/test_rl.py`` on the reference's
+              own inputs (``tests/relax_fixture.py``, 12 UEs x 8 TTIs, both
+              scenarios, deterministic mode, best relative error <= 1e-3);
+              ``optimize_power_plan``'s defaults on ``dense_urban`` at its
+              preset width (200 UEs x 21 cells, 4 segments x 10 TTIs, 40
+              steps): soft and hard Mbit/s at step 0 and at the end, ms per
+              gradient step (forward and backward) and per hard scoring;
+              the power objective's gradient at that width on the
+              reference's drop and draws (deterministic mode), held to the
+              reference's ``jax.grad`` over the 2 TTIs both programs share
+              (value rtol 1e-5, g.v rtol 1e-4, every element within 1e-4 *
+              max|g|, FD <= 1e-3) and printed beside the reference's over
+              the 40 TTIs of the timed step, where a one-ulp drained-backlog
+              residue parts the programs; then 100 000 UEs x 2 segments x 5
+              TTIs: the reckoned autograd memory, ms per gradient step and
+              peak memory;
+14. ppo    -- ``train_power_baseline("dense_urban")`` at ``BENCH_rl.json``'s
+              recipe (12 UEs, 80 iterations): ``best_uplift`` and
+              ``final_uplift`` beside the reference's CPU record 1.1468 and
+              its gate 1.05 (printed, not held), ms per iteration split
+              into collection and update; 2 iterations at 100 000 UEs with
+              ``PPOConfig``'s defaults (n_envs 8, n_steps 16): ms per
+              iteration, kernel launches per collected TTI, peak memory;
+              then 2 iterations + checkpoint + restore + 2 held equal to 4
+              bit for bit in deterministic mode.
 
-Each path (pairwise, episode, env, churn, faults, batch, twin) sets every
-kernel's launch count to 0 just before it and reads the counts just after.  The line before the last
+Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
+ppo) sets every kernel's launch count to 0 just before it and reads the
+counts just after; phases 13 and 14 launch neither kernel (the relaxed
+chain is the torch one: fused_sinr has no backward) and fail if one
+launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
 it exits non-zero before printing any result.
@@ -1531,6 +1560,295 @@ def phase_chaos():
         "checkpoint corruption")
 
 
+def fresh_peak():
+    """Collect garbage, reset the peak and return the bytes still
+    allocated (GiB): what an earlier phase's uncollected cycles hold, so
+    that a peak read later can be told from it."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def no_launches(phase):
+    """Phases 13-14 run the relaxed (torch) chain and the dense env: they
+    launch neither kernel, and say so from the counts."""
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: kernels launched on a path that "
+                             f"has none: {counts}")
+    log(phase, f"launches {counts}: the path runs neither kernel (the "
+        f"relaxed chain is the torch one; fused_sinr has no backward)")
+
+
+def grad_step_ms(soft, u, reps=3):
+    """Host-clock ms of one gradient step (forward and backward of the
+    relaxed objective, synchronised), the median of ``reps`` after one
+    warm-up."""
+    times = []
+    for _ in range(reps + 1):
+        leaf = u.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = soft(leaf)
+        torch.autograd.grad(value, leaf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[reps // 2]
+
+
+def reckon_autograd_gb(n_ues, n_cells, n_freq, n_tti):
+    """The float32 tensors the relaxed chain keeps per TTI for the backward
+    pass, counted from its ops: the faded gain and the RSRP (n_ue, n_cell,
+    n_freq) of ``rsrp``, the softmax attachment's einsum (its weights and
+    the RSRP), the (n_ue, n_cell) log-RSRP softmax, and the soft CQI
+    staircase's (n_ue, n_freq, 15) sigmoids with their arguments."""
+    per_link_freq = 3          # faded gain, RSRP, RSRP kept by the einsum
+    per_link = 4               # measurement, its log, logits, softmax
+    per_ue_freq = 2 * 15 + 30  # sigmoid + argument; the MAC's (n, K) ops
+    floats = n_ues * (n_cells * n_freq * per_link_freq
+                      + n_cells * per_link + n_freq * per_ue_freq)
+    return 4 * floats * n_tti / 2**30
+
+
+def check_width_gradient(horizon, dev):
+    """``relax_fixture.diffopt_check`` on the card: the port's value,
+    g.v and FD errors beside the reference's; the shared horizon
+    (``"held"``) holds its contract, the full one is printed."""
+    import relax_fixture
+    out = relax_fixture.diffopt_check(dev, horizon)
+    port, ref = out["port"], out["ref"]
+    g, g_j = port["grad"], ref["grad"]
+    elem = float(abs(g - g_j).max() / abs(g_j).max())
+    n_seg, tti = relax_fixture.HORIZONS[horizon]
+    fmt = lambda errs: ", ".join(f"{e:.3g}" for e in errs)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    log("diffopt", f"gradient at {relax_fixture.DIFFOPT['n_ues']} UEs, "
+        f"{n_seg} segments x {tti} TTIs, u = 0, the reference's drop and "
+        f"draws ({horizon}): value {port['value']:.7g} (reference "
+        f"{ref['value']:.7g}, rel {rel(port['value'], ref['value']):.3g}), "
+        f"g.v {port['gv']:.6g} (reference {ref['gv']:.6g}, rel "
+        f"{rel(port['gv'], ref['gv']):.3g}), elementwise {elem:.3g} of "
+        f"max|g|; FD rel err per eps {fmt(port['fd_errs'])} (reference "
+        f"{fmt(ref['fd_errs'])})")
+    if not math.isfinite(float(abs(g).sum())):
+        raise AssertionError(f"diffopt: {horizon} gradient not finite")
+    if horizon != "held":
+        return
+    if not (rel(port["value"], ref["value"]) <= 1e-5
+            and rel(port["gv"], ref["gv"]) <= 1e-4 and elem <= 1e-4
+            and min(port["fd_errs"]) <= 1e-3):
+        raise AssertionError(f"diffopt: the gradient at the preset width "
+                             f"parts from the reference's ({horizon})")
+
+
+def phase_diffopt():
+    """The differentiable engine on the card: the reference test's
+    finite-difference check on its own inputs, optimize_power_plan at
+    dense_urban's preset width, and a 100 000-UE gradient step."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import relax_fixture
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.rl import diffopt
+    from repro_torch.sim.scenarios import make_scenario
+    dev = torch.device("cuda")
+    zero_counts()
+    # -- tests/test_rl.py:47 on the reference's inputs, deterministic -----
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in relax_fixture.SCENARIOS:
+            gv, best, errs = relax_fixture.fd_check(name, dev)
+            log("diffopt", f"FD check {name} ({relax_fixture.N_UES} UEs x "
+                f"{relax_fixture.N_TTI} TTIs, the reference test's inputs, "
+                f"deterministic): g.v {gv:.6g}, rel err per eps "
+                + ", ".join(f"{e:.3g}" for e in errs)
+                + f"; best {best:.3g} (limit 1e-3)")
+            if not best <= 1e-3:
+                raise AssertionError(f"diffopt: {name} autograd/FD "
+                                     f"mismatch {best:.3g} > 1e-3")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # -- optimize_power_plan's defaults at the preset width ----------------
+    sim = CRRM(make_scenario("dense_urban"), device=dev)
+    steps, n_seg, tti = 40, 4, 10
+    res, ms_all = timed_ms(lambda: diffopt.optimize_power_plan(
+        sim, n_segments=n_seg, tti_per_segment=tti, steps=steps, lr=0.1))
+    h0, h_end = res.history[0], res.history[-1]
+    if not all(math.isfinite(h["soft_mbps"]) for h in res.history):
+        raise AssertionError("diffopt: non-finite soft objective")
+    per_cell = res.power_plan.sum(dim=-1)
+    if not bool((per_cell <= sim.params.power_W * (1 + 1e-5)).all()):
+        raise AssertionError("diffopt: a power plan over budget")
+    soft, hard = diffopt.make_power_objective(sim, tti_per_segment=tti)
+    ms_grad = grad_step_ms(soft, res.u_plan)
+    _, ms_hard = timed_ms(lambda: hard(res.u_plan))
+    _, ms_hard = timed_ms(lambda: hard(res.u_plan))
+    log("diffopt", f"dense_urban {sim.n_ues} UEs x {sim.n_cells} cells, "
+        f"{n_seg} segments x {tti} TTIs, {steps} steps lr 0.1: soft "
+        f"{h0['soft_mbps']:.4f} -> {h_end['soft_mbps']:.4f} Mbit/s, hard "
+        f"{h0['hard_mbps']:.4f} -> {h_end['hard_mbps']:.4f} Mbit/s; "
+        f"{ms_grad:.3f} ms per gradient step (forward + backward, "
+        f"synchronised), {ms_hard:.3f} ms per hard scoring; the whole "
+        f"optimisation {ms_all / 1e3:.2f} s")
+    # the objective's gradient at this width against the reference's
+    torch.use_deterministic_algorithms(True)
+    try:
+        for horizon in relax_fixture.HORIZONS:
+            check_width_gradient(horizon, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del sim, res, soft, hard
+    # -- the arm: 100 000 UEs, 2 segments x 5 TTIs ------------------------
+    n_big, n_seg, tti = 100_000, 2, 5
+    big = CRRM(make_scenario("dense_urban", n_ues=n_big), device=dev)
+    gb = reckon_autograd_gb(n_big, big.n_cells, big.params.n_freq,
+                            n_seg * tti)
+    log("diffopt", f"reckoned autograd memory at {big.n_ues} UEs x "
+        f"{big.n_cells} cells x {big.params.n_freq} chunks, {n_seg * tti} "
+        f"TTIs: {gb:.2f} GiB of saved float32 tensors")
+    if gb > 56:
+        raise AssertionError("diffopt: the 100 000-UE arm would not fit")
+    soft, _ = diffopt.make_power_objective(big, tti_per_segment=tti)
+    u = torch.zeros((n_seg, big.n_cells, big.params.n_subbands),
+                    device=dev)
+    base = fresh_peak()
+    ms_big = grad_step_ms(soft, u, reps=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("diffopt", f"{big.n_ues} UEs x {big.n_cells} cells, {n_seg} "
+        f"segments x {tti} TTIs: {ms_big:.3f} ms per gradient step, peak "
+        f"device memory {peak:.2f} GiB, {peak - base:.2f} GiB over the "
+        f"{base:.2f} GiB held before the step (reckoned {gb:.2f} GiB for "
+        f"the backward)")
+    torch.cuda.synchronize()
+    no_launches("diffopt")
+    del big, soft
+    torch.cuda.empty_cache()
+
+
+#: benchmarks/BENCH_rl.json: the reference's CPU record on dense_urban and
+#: its gate
+RL_RECORD, RL_GATE = 1.1468, 1.05
+#: the recipe of BENCH_rl.json (train_power_baseline's arguments)
+RL_RECIPE = dict(n_ues=12, iterations=80, n_envs=4, n_steps=8,
+                 tti_per_step=5, episode_tti=40, arrival_rate_hz=2000.0,
+                 lr=1e-2, eval_every=5)
+
+
+def split_iteration_ms(env, pcfg, cfg, ts, reps=2):
+    """(collection ms, update ms) of one PPO iteration from ``ts``: the
+    two halves of ``make_train_step`` timed apart, synchronised, medians
+    of ``reps``."""
+    from repro_torch.rl import ppo, rollout
+    collect = rollout.make_collect_fn(env, pcfg, cfg.n_steps)
+    draws = rollout.RolloutDraws(int(ts.seed), env.device)
+    it = int(ts.iteration)
+    coll, upd = [], []
+    for _ in range(reps):
+        (_, _, traj, last), ms = timed_ms(lambda: collect(
+            ts.params, ts.env_states, ts.feats, draws, it))
+        coll.append(ms)
+        upd.append(timed_ms(lambda: ppo.ppo_update(
+            pcfg, cfg, ts.params, ts.opt_state, traj, last))[1])
+    return sorted(coll)[reps // 2], sorted(upd)[reps // 2]
+
+
+def phase_ppo():
+    """PPO on the card: BENCH_rl.json's recipe, 2 iterations at 100 000
+    UEs, and a bitwise checkpoint resume."""
+    from repro_torch import rl
+    from repro_torch.env import CrrmEnv
+    from repro_torch.rl import ppo, rollout
+    from repro_torch.tree import flatten
+    dev = torch.device("cuda")
+    zero_counts()
+    out, ms = timed_ms(lambda: ppo.train_power_baseline(
+        "dense_urban", device=dev, seed=0, **RL_RECIPE))
+    losses = [m["loss"] for m in out["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("ppo: non-finite loss")
+    col_ms, upd_ms = split_iteration_ms(out["env"], out["pcfg"], out["cfg"],
+                                        out["train_state"])
+    best, final = out["best_uplift"], out["final_uplift"]
+    log("ppo", f"train_power_baseline('dense_urban') at BENCH_rl.json's "
+        f"recipe {RL_RECIPE}: best_uplift {best:.4f} (iteration "
+        f"{out['best_iteration']}), final_uplift {final:.4f}; the "
+        f"reference's CPU record {RL_RECORD}, its gate {RL_GATE}: "
+        f"{'above' if best >= RL_GATE else 'BELOW'} the gate")
+    n_it, n_ev = RL_RECIPE["iterations"], len(
+        [r for r in out["history"] if "uplift" in r])
+    log("ppo", f"{n_it} iterations and {n_ev} evaluations in "
+        f"{ms / 1e3:.2f} s; one iteration from the final state: collection "
+        f"{col_ms:.2f} ms + update {upd_ms:.2f} ms (medians of 2)")
+    del out
+    # -- 2 iterations at 100 000 UEs, PPOConfig's defaults ----------------
+    n_big = 100_000
+    base = fresh_peak()
+    env = CrrmEnv(scenario="dense_urban", scenario_overrides=dict(
+        n_ues=n_big, traffic_params=dict(arrival_rate_hz=2000.0,
+                                         packet_size_bits=12_000.0)),
+        episode_tti=40, tti_per_step=5, telemetry=True,
+        reward_fn=ppo.served_tput_reward, device=dev)
+    pcfg = rl.PolicyConfig(n_cells=env.n_cells, n_subbands=env.n_subbands,
+                           power_W=env.max_cell_power_W, init_log_std=0.0)
+    cfg = rl.PPOConfig(lr=1e-2)
+    ts = rl.ppo_init(env, pcfg, cfg, seed=0)
+    step = rl.make_train_step(env, pcfg, cfg)
+    it_ms = []
+    for _ in range(2):
+        (ts, m), t = timed_ms(lambda: step(ts))
+        it_ms.append(t)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError("ppo: non-finite loss at 100 000 UEs")
+    col_ms, upd_ms = split_iteration_ms(env, pcfg, cfg, ts)
+    collect = rollout.make_collect_fn(env, pcfg, cfg.n_steps)
+    draws = rollout.RolloutDraws(0, dev)
+    _, per = profiled(lambda: collect(ts.params, ts.env_states, ts.feats,
+                                      draws, int(ts.iteration)))
+    n_ttis = cfg.n_steps * cfg.n_envs * env.tti_per_step
+    launches = sum(c for _, c in per.values())
+    busy = sum(us for us, _ in per.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("ppo", f"{env.n_ues} UEs x {env.n_cells} cells, n_envs {cfg.n_envs}, "
+        f"n_steps {cfg.n_steps}, {env.tti_per_step} TTIs per step: ms per "
+        f"iteration " + ", ".join(f"{t:.1f}" for t in it_ms)
+        + f"; split collection {col_ms:.1f} + update {upd_ms:.1f}; "
+        f"{launches / n_ttis:.1f} kernel launches and {busy / n_ttis:.1f} "
+        f"device us per collected TTI ({n_ttis} TTIs); peak device memory "
+        f"{peak:.2f} GiB ({base:.2f} GiB held before the env's set-up); "
+        f"reward {float(m['mean_reward']):.4f}")
+    del env, ts, step, collect
+    torch.cuda.empty_cache()
+    # -- 2 + checkpoint + restore + 2 == 4, deterministic -----------------
+    env = CrrmEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=12),
+                  episode_tti=40, tti_per_step=5, telemetry=True,
+                  reward_fn=ppo.served_tput_reward, device=dev)
+    pcfg = rl.PolicyConfig(n_cells=env.n_cells, n_subbands=env.n_subbands,
+                           power_W=env.max_cell_power_W)
+    cfg = rl.PPOConfig(n_envs=4, n_steps=8)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with twin_dir() as td:
+            ts_a, hist_a = rl.train(env, pcfg, cfg, iterations=4, seed=0)
+            rl.train(env, pcfg, cfg, iterations=2, seed=0, ckpt_dir=td,
+                     ckpt_every=1)
+            ts_b, hist_b = rl.train(env, pcfg, cfg, iterations=4, seed=0,
+                                    ckpt_dir=td, ckpt_every=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    keys, a = flatten(ts_a)
+    b = flatten(ts_b)[1]
+    if not (hist_b == hist_a[2:] and keys == flatten(ts_b)[0]
+            and all(torch.equal(x, y) for x, y in zip(a, b))):
+        raise AssertionError("ppo: the resumed run differs from the "
+                             "uninterrupted one")
+    log("ppo", f"deterministic mode: 2 iterations + checkpoint + restore + "
+        f"2 equal 4 uninterrupted iterations bitwise ({len(keys)} leaves, "
+        f"the history too)")
+    torch.cuda.synchronize()
+    no_launches("ppo")
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -1544,6 +1862,8 @@ def main():
     phase_batch()
     phase_twin()
     phase_chaos()
+    phase_diffopt()
+    phase_ppo()
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

@@ -125,3 +125,32 @@ def twin_tree(data: dict, device) -> dict:
             "power": to_tensor(np.asarray(data["power"], np.float32), device),
             "fairness": to_tensor(np.asarray(data["fairness"], np.float32),
                                   device)}
+
+
+def _tree(data, device):
+    """Nested dicts and lists of numpy leaves as the same nesting of
+    tensors (:func:`to_tensor` dtypes)."""
+    if isinstance(data, dict):
+        return {k: _tree(v, device) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return type(data)(_tree(v, device) for v in data)
+    return to_tensor(data, device)
+
+
+def policy_params(data: dict, device) -> dict:
+    """The port's actor-critic params (``rl.policy``) from the reference's
+    (numpy leaves): the same dict tree -- ``actor``, ``critic``,
+    ``layers`` (a list of ``{"w", "b"}``) and ``log_std`` -- in float32."""
+    if set(data) != {"actor", "critic", "layers", "log_std"}:
+        raise ValueError(f"not an actor-critic params tree: keys "
+                         f"{sorted(data)}")
+    return _tree(data, device)
+
+
+def adamw_state(data: dict, device) -> dict:
+    """The port's ``train.optim.adamw`` state from the reference's (numpy
+    leaves): the ``mu``/``nu`` moment trees in float32 and the int32 step
+    ``count``."""
+    if set(data) != {"mu", "nu", "count"}:
+        raise ValueError(f"not an adamw state: keys {sorted(data)}")
+    return _tree(data, device)

@@ -312,21 +312,23 @@ class CRRM:
     def episode_fns(self, mobility_step_m=None, per_tti_fading: bool = False,
                     use_harq=None, radio_mode=None, mobility_move_frac=None,
                     inc_backend=None, telemetry: bool = False, churn=None,
-                    faults=None, **later):
+                    relax=None, faults=None, **later):
         """The ``(step, rollout)`` episode functions for this simulator,
         cached per switch combination (see ``mac.engine.make_episode_fns``).
         ``telemetry`` adds a per-TTI KPI tuple to both functions' returns;
         ``churn`` a ``sim.mobility.ChurnConfig`` turns on the birth-death
-        UE process; ``faults`` (default ``params.faults``, ``0`` forces it
-        off) the per-cell fault process.  Mesh and relax raise
-        ``NotImplementedError``: they wait for later slices."""
+        UE process; ``relax`` a ``sim.radio.RelaxConfig`` the
+        differentiable chain (dense radio only); ``faults`` (default
+        ``params.faults``, ``0`` forces it off) the per-cell fault process.
+        The mesh raises ``NotImplementedError``: it waits for a later
+        slice."""
         from repro_torch.mac import engine as mac_engine
         return mac_engine.episode_fns_for(
             self, mobility_step_m=mobility_step_m,
             per_tti_fading=per_tti_fading, use_harq=use_harq,
             radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
             inc_backend=inc_backend, telemetry=telemetry, churn=churn,
-            faults=faults, **later)
+            relax=relax, faults=faults, **later)
 
     def sync_episode_state(self, state, positions: bool = False) -> None:
         """Write a final ``EpisodeState`` back into the graph."""

@@ -214,6 +214,24 @@ def _launch(U, C, Pw, boresight, fad=None, *, idx=None, pathgain_fn,
     return total, best_val, best_idx, w_best
 
 
+def grad_unsupported_reason(**inputs) -> "str | None":
+    """``None`` unless autograd records one of the named ``inputs``, else
+    why the kernel cannot take them: it has no backward (nor has the TPU
+    kernel it replaces), so its outputs would be cut off from the
+    gradient.  On CPU tensors the plain version is held to the same rule,
+    so a route behaves alike on both devices."""
+    if not torch.is_grad_enabled():
+        return None
+    names = [k for k, x in inputs.items()
+             if isinstance(x, torch.Tensor) and x.requires_grad]
+    if not names:
+        return None
+    return (f"{', '.join(names)} require grad and fused_sinr has no "
+            f"backward; differentiate through the materialised chain "
+            f"(backend='torch', inc_backend='torch') or call under "
+            f"torch.no_grad()")
+
+
 def fused_sinr_accumulate(U, C, Pw, boresight, fad=None, *, idx=None,
                           pathgain_fn, n_sectors: int = 1,
                           attach_on_mean: bool = False):
@@ -232,6 +250,10 @@ def fused_sinr_accumulate(U, C, Pw, boresight, fad=None, *, idx=None,
     ``repro_torch.sim.pathloss`` (the kernel reads its ``kernel_spec``; the
     plain version calls it).
     """
+    reason = grad_unsupported_reason(U=U, C=C, Pw=Pw, boresight=boresight,
+                                     fad=fad)
+    if reason is not None:
+        raise ValueError(f"fused_sinr cannot run here: {reason}")
     kw = dict(idx=idx, pathgain_fn=pathgain_fn, n_sectors=n_sectors,
               attach_on_mean=attach_on_mean)
     if U.device.type == "cpu":

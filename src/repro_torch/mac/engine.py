@@ -21,8 +21,10 @@ telemetry (``repro_torch.obs.telemetry``), the birth-death UE process
 envs: a state whose leaves lead with B, each env with its own seed, TTI
 counter and ``Draws``.  Churn and faults draw from lineages of their own,
 so turning them on leaves the mobility, fading, traffic and HARQ draws
-bit-identical.  Mesh sharding and the relaxed (differentiable) chain wait
-for later slices and raise ``NotImplementedError``.
+bit-identical.  ``relax=`` (a ``radio.RelaxConfig``) softens the
+recomputed chain for ``torch.autograd``: single device, dense radio, no
+churn and no faults.  Mesh sharding waits for a later slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -258,7 +260,7 @@ def stationary_served_tput(params, n_cells: int, se, cqi, a, backlog):
     return (bits / p.tti_s).sum(dim=1)
 
 
-_LATER = {"mesh": "mesh", "cell_axis": "mesh", "relax": "RL"}
+_LATER = {"mesh": "mesh", "cell_axis": "mesh"}
 
 
 def _reject_later(**kw):
@@ -366,6 +368,15 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     gain matrices and re-derives every per-UE output when a cell changes
     state (``radio.radio_update_cells``, branch-free: no host read).
 
+    ``relax`` (a ``radio.RelaxConfig``) makes ``rollout`` differentiable
+    with respect to a power ``action`` (or anything else the recomputed
+    chain reads): soft attachment, the soft or straight-through CQI
+    staircase and the soft max_cqi, each behind its flag, plus the
+    autograd-traceable reductions of ``mac.scheduler`` and a 1e-6-bit
+    ``served_bits`` floor.  ``relax=None`` is the legacy engine.  It takes
+    the dense torch chain only: the fused kernel has no backward, so the
+    incremental mode, churn, faults and a mesh raise.
+
     ``telemetry=True`` adds a per-TTI
     :class:`~repro_torch.obs.telemetry.Telemetry` to both functions'
     returns; it draws nothing and touches no state, so the trajectory is
@@ -395,7 +406,24 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             "position/fading rows into the capacity-padded active mask, "
             "and that scatter does not cross shard boundaries; drop mesh= "
             "or pass churn=None")
-    _reject_later(mesh=mesh, cell_axis=cell_axis, relax=relax)
+    if relax is not None:
+        if mesh is not None:
+            raise ValueError(
+                "relax= (differentiable relaxations) is single-device: "
+                "the soft allocator has no cross-shard reductions; drop "
+                "mesh= (shrink the problem) or relax=None")
+        if churn_on:
+            raise ValueError(
+                "relax= is incompatible with churn=: the birth-death "
+                "scatter writes discrete rows (no gradient path through "
+                "births); differentiate a fixed population instead")
+        if radio_mode == "incremental":
+            raise ValueError(
+                "relax= requires radio_mode='dense': the incremental path "
+                "carries hard argmax attachment in its RadioState and "
+                "patches rows in place (and the fused kernel has no "
+                "backward); pass radio_mode='dense' when differentiating")
+    _reject_later(mesh=mesh, cell_axis=cell_axis)
     p = params
     cfg = radio_cfg
     tti_s, beta = p.tti_s, p.pf_ewma
@@ -506,9 +534,17 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             rs = update(cfg, rs, U, static.C, static.bore, fad, P, idx)
         return U, rs, n_dirty
 
-    def sinr_chain(R, a):
-        gamma, _, _ = radio.sinr(R, a, noise_w)
-        se, cqi = radio.se_chain(cfg, gamma)
+    def sinr_chain(R, a, meas):
+        """(se, cqi, a) for serving assignment ``a``.  Under
+        ``relax.soft_attach`` the wanted/interference split is the softmax
+        combination over the measurement ``meas`` the hard argmax ranks;
+        the returned ``a`` stays the hard index either way."""
+        if relax is not None and relax.soft_attach:
+            gamma = radio.soft_attach_sinr(R, meas, relax.attach_tau,
+                                           noise_w)
+        else:
+            gamma, _, _ = radio.sinr(R, a, noise_w)
+        se, cqi = radio.se_chain_relaxed(cfg, gamma, relax)
         return se, cqi, a
 
     def gather_serving(se_all, cqi_all, a):
@@ -521,6 +557,10 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             demand = demand & act[..., None]
         active = demand & (se > 0.0)
         fp = p.fairness_p if fair is None else fair
+        if relax is not None and relax.soft_sched and policy == "max_cqi":
+            # winner-take-all softened to a softmax over the relaxed SE
+            return mac_sched.allocate_max_cqi_soft(active, se, a, n_cells,
+                                                   rb_chunk, relax.sched_tau)
         log_w = mac_sched.pf_log_weights_ewma(rb_bw * se, avg[..., None], fp)
         return mac_sched.allocate(policy, active, cqi, a, n_cells, rb_chunk,
                                   cursor, log_w)
@@ -685,11 +725,12 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                                          ttt_tti)
                 a_use = a_srv
                 if R is not None:
-                    se, cqi, _ = sinr_chain(R, a_use)
+                    se, cqi, _ = sinr_chain(R, a_use, meas=meas_wb)
                 else:
                     se, cqi = gather_serving(h["se_all"], h["cqi_all"], a_use)
             elif R is not None:
-                se, cqi, a_use = sinr_chain(R, a_inst)
+                se, cqi, a_use = sinr_chain(R, a_inst,
+                                            meas=R_meas.sum(dim=-1))
             else:
                 se, cqi, a_use = static.se, static.cqi, static.a
         if faults_on and not ho_on:
@@ -718,8 +759,9 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         alloc = allocate(se, cqi, a_use, buf, avg, state.rr_cursor,
                          harq_pending, act, fair)
         drainable = torch.where(harq_pending, 0.0, buf)
-        tb_new = mac_sched.served_bits(alloc, se, drainable, rb_bw,
-                                       tti_s).sum(dim=-1)
+        tb_new = mac_sched.served_bits(
+            alloc, se, drainable, rb_bw, tti_s,
+            floor=1e-6 if relax is not None else 1e-30).sum(dim=-1)
         hstats = None
         if harq_on:
             u = draw(lambda d, t: d.harq_uniform(t, n_ues))
@@ -898,7 +940,7 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
 def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
                     use_harq=None, radio_mode=None, mobility_move_frac=None,
                     inc_backend=None, telemetry: bool = False, churn=None,
-                    faults=None, **later) -> EpisodeFns:
+                    relax=None, faults=None, **later) -> EpisodeFns:
     """The :func:`make_episode_fns` bundle for ``sim``, cached on it.
 
     ``mobility_step_m=None`` falls back to ``params.mobility_step_m``
@@ -920,7 +962,7 @@ def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
         faults = None
     cache_key = (mobility_step_m, per_tti_fading, use_harq, radio_mode,
                  mobility_move_frac, inc_backend, bool(telemetry), churn,
-                 faults, tuple(sorted(later.items())))
+                 relax, faults, tuple(sorted(later.items())))
     cache = sim.__dict__.setdefault("_episode_fns_cache", {})
     if cache_key not in cache:
         cache[cache_key] = make_episode_fns(
@@ -929,7 +971,7 @@ def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
             per_tti_fading=per_tti_fading, use_harq=use_harq,
             radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
             inc_backend=inc_backend, telemetry=bool(telemetry), churn=churn,
-            faults=faults, **later)
+            relax=relax, faults=faults, **later)
     return cache[cache_key]
 
 

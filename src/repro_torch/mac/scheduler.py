@@ -13,9 +13,11 @@ PF weights, round-robin cursor) to ``alloc[i, k]``, the RBs granted to UE
 
 Every policy also takes a batch of envs: ``(B, n_ue, K)`` masks with
 ``(B, n_ue)`` attachments (and a ``(B,)`` cursor), reduced per cell through
-the flat-id segment reductions of ``mac.segments``.  Mesh sharding
-(``ue_axis``) and the soft max_cqi of the differentiable engine wait for
-later slices of the port.
+the flat-id segment reductions of ``mac.segments``.  The differentiable
+engine (``radio.RelaxConfig``) takes the soft max_cqi,
+:func:`allocate_max_cqi_soft`, and differentiates through the others as
+they are.  Mesh sharding (``ue_axis``) waits for a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -28,6 +30,14 @@ SCHEDULER_POLICIES = ("rr", "max_cqi", "pf")
 
 #: cap on the alpha-fair exponent (singular at fairness_p = 1)
 _ALPHA_MAX = 63.0
+#: finite stand-in for -inf as the idle weight: exp(_NEG - m) underflows
+#: to exactly 0.0, with a zero gradient where -inf - -inf would put a NaN
+#: into the backward pass
+_NEG = -1e30
+#: floor of the share's denominator: never reached forward (a nonempty
+#: cell's peak weight is exp(0) = 1), and its square, which the backward
+#: pass forms, stays a normal float32
+_DENOM_FLOOR = 1e-15
 
 
 def _cell_mask(active, a, n_cells):
@@ -73,16 +83,32 @@ def allocate_max_cqi(active, cqi, a, n_cells, n_rb):
     return torch.where(active & (mine == i), float(n_rb), 0.0)
 
 
-def allocate_pf(active, log_w, a, n_cells, n_rb):
-    """Weight-proportional split of the grid (log-space for stability)."""
-    neg = float("-inf")
-    log_w = torch.where(active, log_w, neg)
-    cell_max = segments.segment_max(log_w, a, n_cells, fill=neg)
+def allocate_max_cqi_soft(active, se, a, n_cells, n_rb, tau):
+    """Soft max_cqi: each cell's active UEs split its ``n_rb`` RBs in
+    proportion to ``softmax(se / tau)`` (``RelaxConfig.soft_sched``).
+
+    Scoring the (relaxed) SE rather than the int32 CQI lets the gradient
+    reach the powers; as ``tau -> 0`` the share collapses onto the best-SE
+    UE.  The same log-space segment program as :func:`allocate_pf`.
+    """
+    return n_rb * _softmax_share(active, se / tau, a, n_cells)
+
+
+def _softmax_share(active, log_w, a, n_cells):
+    """Each active UE's share of its cell, ``softmax(log_w)`` over the
+    cell's active UEs (0 for idle UEs and empty cells)."""
+    log_w = torch.where(active, log_w, _NEG)
+    cell_max = segments.segment_max(log_w, a, n_cells, fill=_NEG)
     w = torch.exp(log_w - segments.take(cell_max, a))   # in (0, 1], 0 if idle
     w = torch.where(active, w, 0.0)
     denom = segments.take(segments.segment_sum(w, a, n_cells), a)
-    share = torch.where(denom > 0.0, w / torch.clamp(denom, min=1e-30), 0.0)
-    return n_rb * share
+    return torch.where(denom > 0.0,
+                       w / torch.clamp(denom, min=_DENOM_FLOOR), 0.0)
+
+
+def allocate_pf(active, log_w, a, n_cells, n_rb):
+    """Weight-proportional split of the grid (log-space for stability)."""
+    return n_rb * _softmax_share(active, log_w, a, n_cells)
 
 
 def allocate(policy, active, cqi, a, n_cells, n_rb, cursor, log_w):
@@ -133,7 +159,11 @@ def pf_log_weights_ewma(rate, avg, fairness_p):
 
 def served_bits(alloc, se, backlog, rb_bw_hz, tti_s, floor=1e-30):
     """Bits drained per (UE, subband) in one TTI: grant capacity, capped by
-    the UE's total backlog (``inf - bits`` stays ``inf`` for full buffer)."""
+    the UE's total backlog (``inf - bits`` stays ``inf`` for full buffer).
+
+    ``floor`` guards the backlog/grant ratio: 1e-30 is forward-exact; the
+    relaxed engine passes 1e-6 bits, since the backward pass squares the
+    grant total and a soft grant of ~1e-25 bits would underflow to 0."""
     cap = alloc * rb_bw_hz * se * tti_s                # (..., n_ue, K) bits
     tot = cap.sum(dim=-1)
     scale = torch.where(tot > 0.0,

@@ -2,9 +2,14 @@
 
 ``segment_sum`` is ``index_add_`` and ``segment_max`` is
 ``scatter_reduce("amax", include_self=True)`` over a ``fill``-initialised
-output.  On CUDA both use atomics in no fixed order, so a float
-``segment_sum`` matches the JAX scatter-add only to rounding, never
-bitwise; integer sums and maxima are exact.
+output.  Autograd records both (the relaxed engine differentiates through
+them): the in-place write lands on a fresh buffer, not on a leaf.  A
+max's gradient splits evenly over the rows tied at a bin's maximum, where
+JAX's scatter-max gradient may split otherwise; the relaxed engine uses
+the maximum only as a stabiliser, whose gradient cancels.  On CUDA both
+use atomics in no fixed order, so a float ``segment_sum`` matches the JAX
+scatter-add only to rounding, never bitwise; integer sums and maxima are
+exact.
 
 A batch of envs passes ``(B, n, ...)`` data with ``(B, n)`` ids: the batch
 coordinate folds into the ids, ``seg + n_seg * b``, and one flat reduction

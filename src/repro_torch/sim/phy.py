@@ -67,6 +67,26 @@ def spectral_efficiency(sinr_linear):
     return torch.where(cqi > 0, se, 0.0)
 
 
+def soft_spectral_efficiency(sinr_linear, sharpness_per_db=2.0):
+    """Smooth surrogate of :func:`spectral_efficiency` (differentiable CRRM).
+
+    Every step of the SE staircase -- ``eff(i) - eff(i-1)`` where the SINR
+    crosses ``CQI_SINR_THRESHOLDS_DB[i-1]`` -- becomes a sigmoid of slope
+    ``sharpness_per_db`` (per dB): C-infinity, monotone, equal to the hard
+    staircase at plateau centres, with a finite gradient everywhere (also
+    below the CQI-1 cutoff, where the hard chain is zero).  As the
+    sharpness grows it converges pointwise to the staircase.
+    """
+    dev = sinr_linear.device
+    cqi = torch.arange(16, dtype=torch.int32, device=dev)
+    levels = torch.where(cqi > 0, mcs_to_efficiency(cqi_to_mcs(cqi)), 0.0)
+    deltas = levels[1:] - levels[:-1]                        # (15,)
+    g_db = sinr_to_db(sinr_linear)
+    steps = torch.sigmoid(sharpness_per_db * (
+        g_db[..., None] - table("CQI_SINR_THRESHOLDS_DB", dev)))
+    return (deltas * steps).sum(dim=-1)
+
+
 def shannon_capacity(sinr_linear, bandwidth_hz, n_tx=1, n_rx=1):
     """Shannon bound with an ideal spatial-multiplexing MIMO factor."""
     streams = min(int(n_tx), int(n_rx))

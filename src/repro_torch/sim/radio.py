@@ -18,7 +18,11 @@ materialised chain; ``None`` means ``"torch"``) and ``"fused"`` (the
 hand-written CUDA kernel of ``kernels/fused_sinr`` on CUDA tensors, its
 plain version on CPU tensors).  ``"auto"`` is ``"fused"`` exactly when
 :func:`fused_unsupported_reason` returns ``None``: a pure function of the
-configuration, with no probe and no fallback.
+configuration, with no probe and no fallback.  The kernel has no
+backward: the fused route raises when autograd records one of its inputs
+(``kernels.fused_sinr.grad_unsupported_reason``) and never detaches them;
+gradients flow through the ``"torch"`` chain and the relaxations of
+:class:`RelaxConfig`.
 """
 from __future__ import annotations
 
@@ -221,6 +225,70 @@ def se_chain(cfg: RadioConfig, gamma):
     """(se, cqi) from a linear SINR tensor, at reporting resolution."""
     cqi = cqi_of(cfg, gamma)
     return se_of(mcs_of(cqi), cqi), cqi
+
+
+# ---------------------------------------------------------------------------
+# differentiable relaxations
+# ---------------------------------------------------------------------------
+class RelaxConfig(NamedTuple):
+    """Flags selecting soft relaxations of the MAC chain.
+
+    The forward chain has three non-differentiable points: argmax
+    attachment, the CQI staircase and the max_cqi scheduler's
+    winner-take-all.  Each has its own relaxation; ``relax=None`` is the
+    exact legacy chain.  Hashable, so it keys the ``episode_fns_for``
+    cache like :class:`RadioConfig`.
+
+    * ``soft_attach`` -- the wanted/interference split under a
+      temperature-``attach_tau`` softmax over per-cell log-RSRP; the
+      scheduling attachment stays the hard argmax.
+    * ``cqi_mode`` -- ``"soft"``: SE from
+      :func:`phy.soft_spectral_efficiency`; ``"ste"``: straight-through,
+      the hard SE forward and the soft surrogate's gradient
+      (``soft + (hard - soft).detach()``); ``"hard"``: the staircase.
+    * ``soft_sched`` -- max_cqi's winner-take-all becomes a
+      temperature-``sched_tau`` softmax share over each cell's active UEs
+      (pf is already smooth, rr does not read the CQI).
+    """
+
+    soft_attach: bool = True
+    attach_tau: float = 0.1       # log-RSRP softmax temperature
+    cqi_mode: str = "soft"        # "soft" | "ste" | "hard"
+    se_sharpness: float = 2.0     # sigmoid slope of the soft staircase, /dB
+    soft_sched: bool = True
+    sched_tau: float = 1.0        # SE-softmax temperature (bits/s/Hz scale)
+
+
+def soft_attach_sinr(R, meas, tau: float, noise_w: float):
+    """gamma under softmax attachment: weights ``softmax(log meas / tau)``
+    over the cells of each UE, ``w = sum_j p_ij R[i, j, :]`` and ``u =
+    sum_j R[i, j, :] - w``.  ``meas`` is the (n_ue, n_cell) wideband
+    measurement the hard argmax ranks; as ``tau -> 0`` this is
+    :func:`sinr`."""
+    logits = torch.log(torch.clamp(meas, min=1e-30)) / tau
+    p = torch.softmax(logits, dim=1)                       # (n_ue, n_cell)
+    w = torch.einsum("uc,ucf->uf", p, R)
+    u = R.sum(dim=1) - w
+    return sinr_from_wu(w, u, noise_w)
+
+
+def se_chain_relaxed(cfg: RadioConfig, gamma, relax: "RelaxConfig | None"):
+    """(se, cqi): :func:`se_chain` with the CQI staircase relaxed.
+
+    ``relax=None`` and ``cqi_mode="hard"`` are :func:`se_chain` itself.  The
+    reported ``cqi`` stays the hard int32 CQI in every mode; only the SE
+    softens.
+    """
+    if relax is None or relax.cqi_mode == "hard":
+        return se_chain(cfg, gamma)
+    if cfg.cqi_wideband and cfg.n_rb_subbands > 1:
+        gamma = pool_report(gamma, cfg.n_rb_subbands, cfg.eesm_beta)
+    cqi = quantize_cqi(gamma)
+    soft = phy.soft_spectral_efficiency(gamma, relax.se_sharpness)
+    if relax.cqi_mode == "ste":
+        hard = se_of(mcs_of(cqi), cqi)
+        return soft + (hard - soft).detach(), cqi
+    return soft, cqi
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +606,8 @@ def radio_forward(static: RadioStatic, positions, fad=None, fading_gen=None,
     ``cfg.rayleigh_fading``) or defaults to none.  ``P`` overrides the
     static power matrix.  ``backend``: ``None``/``"torch"`` materialises
     the chain; ``"fused"`` runs the fused kernel (``G``/``rsrp`` are then
-    ``None``) and raises where it cannot express the configuration;
+    ``None``) and raises where it cannot express the configuration or
+    where autograd records an input (the kernel has no backward);
     ``"auto"`` is ``"fused"`` iff :func:`fused_unsupported_reason` is
     ``None``.
     """

@@ -1,2 +1,3 @@
-"""Training-side utilities of the port: so far only ``checkpoint`` (the
-CRRM part of ``repro.train``; the LM scaffolding waits for its slice)."""
+"""Training-side utilities of the port: ``checkpoint`` (the CRRM part of
+``repro.train``) and ``optim`` (the AdamW of the RL stack); the LM
+scaffolding waits for its slice."""

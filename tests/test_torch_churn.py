@@ -4,9 +4,10 @@ Mirrors the reference's own churn cases (tests/test_twin.py): the
 birth-death invariants, inactive UEs at zero RB and zero throughput,
 telemetry counting only active UEs, incremental == dense, chunk
 invariance, the legacy state untouched, ``scatter_born``'s duplicate
-safety and churn + mesh raising.  Parity runs hand the port the
-reference's draws (``torch_parity.ReplayDraws``, which replays
-``radio.churn_keys``).  Contract: ``active``, ``born``, attachment and RB
+safety and churn + mesh raising; the full twin regime (handover,
+fading, HARQ, bursty traffic) runs in tests/test_torch_churn_handover.py.
+Parity runs hand the port the reference's draws
+(``torch_parity.ReplayDraws``, which replays ``radio.churn_keys``).  Contract: ``active``, ``born``, attachment and RB
 grants exact (near ties counted as ``torch_parity`` does), throughput and
 backlog rtol 1e-4 (``check_state``/``check_telemetry``).
 """
@@ -110,17 +111,6 @@ def test_churn_engine_matches_reference(radio_mode, inc_backend):
     params = JParams(**BASE, fairness_p=0.5, mobility_step_m=20.0,
                      mobility_move_frac=0.1, radio_mode=radio_mode)
     check_pair(*churn_pair(params, inc_backend=inc_backend))
-
-
-def test_churn_with_handover_fading_and_harq_matches_reference():
-    """Carried fading (newborn rows redrawn), newborns attached at once
-    under A3, HARQ, bursty traffic: the full regime of the twin preset."""
-    params = JParams(**dict(BASE, n_ues=24), rayleigh_fading=True,
-                     ho_enabled=True, harq_bler=0.2,
-                     traffic_model="poisson",
-                     traffic_params=dict(arrival_rate_hz=300.0,
-                                         packet_size_bits=12_000.0))
-    check_pair(*churn_pair(params, n_tti=15))
 
 
 @pytest.mark.parametrize("radio_mode", ["dense", "incremental"])

@@ -550,3 +550,76 @@ def test_twin_raised_chunk_recovers_on_fused(cuda, tmp_path):
     assert fk.fused_sinr_accumulate.launches - before == 10
     assert srv.t == 20 and srv.inc_backend == "fused" and srv.fns is fns
     assert not any("degrad" in line for line in srv.fault_history)
+
+
+# ------------------------------------------------ the differentiable engine
+@pytest.mark.parametrize("scenario", ["dense_urban", "handover_stress"])
+def test_relaxed_grad_matches_finite_differences_deterministic(cuda,
+                                                               scenario):
+    """``tests/test_rl.py``'s check on the card, on the reference's own
+    inputs (``tests/relax_fixture.py``): autograd through the relaxed
+    8-TTI rollout against central differences, best over the four eps,
+    <= 1e-3, in deterministic mode (index_add_ in a fixed order)."""
+    import relax_fixture
+    torch.use_deterministic_algorithms(True)
+    try:
+        gv, best, errs = relax_fixture.fd_check(scenario, cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert best <= 1e-3, f"{scenario}: grad/FD mismatch {errs} (g.v={gv})"
+
+
+def test_relaxed_grad_at_the_preset_width_deterministic(cuda):
+    """``tests/test_torch_relax_width.py``'s contract on the card: the
+    power objective's gradient at 200 UEs over the 2 TTIs both programs
+    share equals the reference's ``jax.grad`` (value rtol 1e-5, g.v rtol
+    1e-4, every element within 1e-4 * max|g|) and central differences
+    (<= 1e-3), in deterministic mode."""
+    import relax_fixture
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = relax_fixture.diffopt_check(cuda, "held")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    port, ref = out["port"], out["ref"]
+    np.testing.assert_allclose(port["value"], ref["value"], rtol=1e-5)
+    np.testing.assert_allclose(port["gv"], ref["gv"], rtol=1e-4)
+    g, g_j = port["grad"], ref["grad"]
+    assert np.abs(g - g_j).max() <= 1e-4 * np.abs(g_j).max()
+    assert min(port["fd_errs"]) <= 1e-3, port["fd_errs"]
+
+
+def test_fused_kernel_raises_on_an_input_that_requires_grad(cuda):
+    U, C, P, bore, fad = make_inputs(64, 7, 2, "rb", device=cuda)
+    before = fk.fused_sinr_accumulate.launches
+    with pytest.raises(ValueError, match="no backward"):
+        fk.fused_sinr_accumulate(U, C, P.requires_grad_(True), bore, fad,
+                                 pathgain_fn=pathloss.UMa_pathloss())
+    assert fk.fused_sinr_accumulate.launches == before
+
+
+def test_ppo_resume_is_bitwise_on_the_card_deterministic(cuda, tmp_path):
+    """2 iterations + checkpoint + restore + 2 equal 4 uninterrupted
+    iterations bit for bit on the card, in deterministic mode."""
+    from repro_torch import rl
+    from repro_torch.env import CrrmEnv
+    from repro_torch.tree import flatten
+    env = CrrmEnv(scenario="dense_urban",
+                  scenario_overrides=dict(n_ues=12), episode_tti=8,
+                  tti_per_step=4, telemetry=True, device=cuda)
+    pcfg = rl.PolicyConfig(n_cells=env.n_cells, n_subbands=env.n_subbands,
+                           power_W=env.max_cell_power_W)
+    cfg = rl.PPOConfig(n_envs=2, n_steps=4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ts_a, hist_a = rl.train(env, pcfg, cfg, iterations=4, seed=0)
+        d = str(tmp_path / "ckpt")
+        rl.train(env, pcfg, cfg, iterations=2, seed=0, ckpt_dir=d,
+                 ckpt_every=1)
+        ts_b, hist_b = rl.train(env, pcfg, cfg, iterations=4, seed=0,
+                                ckpt_dir=d, ckpt_every=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hist_b == hist_a[2:]
+    for (k, a), b in zip(zip(*flatten(ts_a)), flatten(ts_b)[1]):
+        assert a.device.type == "cuda" and torch.equal(a, b), k

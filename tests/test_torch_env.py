@@ -8,11 +8,15 @@ its ``draws=`` factory (the port's reset seed ``s`` is the reference's
 (``jax.disable_jit``, see tests/test_torch_engine.py).  Contract
 (``torch_parity.check_env_step``): states as ``check_state``, telemetry as
 ``check_telemetry``; obs, reward and reward components rtol 1e-4; ``done``
-exact.  The resampled reset is tested in tests/test_torch_env_topology.py.
+exact.  The episode check's presets are split over four files by
+``torch_parity.ENV_GROUPS`` (this one, ``_twin``, ``_handover`` and
+``_scenarios``): the eager reference compiles each preset's primitives
+anew, and each file stays under a minute.  The resampled reset is tested
+in tests/test_torch_env_topology.py.
 """
 import dataclasses
+from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +30,8 @@ from repro_torch.env.crrm_env import expand_action as t_expand
 from repro_torch.mac.engine import Draws
 from repro_torch.sim import faults as t_faults
 from repro_torch.sim import scenarios as t_scen
-from torch_parity import (RUNNABLE_SCENARIOS, bursty, check_env_step,
-                          check_state, env_pair, np_)
+from torch_parity import (ENV_GROUPS, RUNNABLE_SCENARIOS, check_env_episode,
+                          np_)
 
 
 def test_registry_matches_reference_field_by_field():
@@ -85,33 +89,22 @@ def test_outage_storm_builds_but_raises_when_run():
     assert info["telemetry"].reattach_events is not None
 
 
-@pytest.mark.parametrize("name", RUNNABLE_SCENARIOS)
+@pytest.mark.parametrize("name", ENV_GROUPS["test_torch_env"])
 def test_env_episode_matches_reference(name):
-    """reset, a uniform step, a random-action step with a fairness
-    override (reaching ``done``), then ``step_autoreset`` across the
-    episode boundary."""
-    ref, port = env_pair(name)
-    sj, oj = ref.reset(jax.random.PRNGKey(3))
-    st, ot = port.reset(3)
-    check_state(st, sj)
-    assert int(st.seed) == 3
-    np.testing.assert_array_equal(np_(ot.tput), np_(oj.tput))
-    act = np.random.default_rng(0).uniform(
-        0.0, port.max_cell_power_W, port.action_shape).astype(np.float32)
-    with jax.disable_jit(bursty(ref)):
-        out_j = ref.step(sj, ref.uniform_action())
-        out_t = port.step(st, port.uniform_action())
-        check_env_step(out_t, out_j)
-        out_j = ref.step(out_j[0], jnp.asarray(act), jnp.float32(0.2))
-        out_t = port.step(out_t[0], act, 0.2)
-        check_env_step(out_t, out_j)
-        assert bool(out_t[3])
-        ar_j = ref.step_autoreset(out_j[0], None, jax.random.PRNGKey(7))
-        ar_t = port.step_autoreset(out_t[0], None, 7)
-    check_env_step((out_t[0],) + ar_t[1:], (out_j[0],) + ar_j[1:])
-    fresh_j, _ = ref.reset(jax.random.PRNGKey(7))
-    check_state(ar_t[0], fresh_j)
-    assert int(ar_t[0].seed) == 7
+    """``torch_parity.check_env_episode``: reset, a uniform step, a
+    random-action step with a fairness override (reaching ``done``), then
+    ``step_autoreset`` across the episode boundary."""
+    check_env_episode(name)
+
+
+def test_env_groups_cover_every_runnable_preset():
+    """The env files together run the episode check on every preset the
+    reference env steps, each preset once (the resampled reset runs on
+    all of them in tests/test_torch_env_topology.py)."""
+    names = [n for group in ENV_GROUPS.values() for n in group]
+    assert sorted(names) == sorted(RUNNABLE_SCENARIOS)
+    for f in ENV_GROUPS:
+        assert (Path(__file__).parent / f"{f}.py").is_file(), f
 
 
 @pytest.mark.parametrize("n_rb_subbands", [1, 4])

@@ -1,39 +1,38 @@
 """The port's per-cell fault process (``faults=``) against the JAX package.
 
 Mirrors the reference's own fault-process cases (tests/test_faults.py):
-zero-rate faults bitwise equal to faults off, a DOWN cell dark, a SLEEP
-cell attenuated, reattachment conservation under the storm, dense ==
-incremental under the storm, faults composing with churn and the batch
-axis, faults + relax raising, and parameter validation.  Parity runs hand
-the port the reference's draws (``torch_parity.ReplayDraws``, which
-replays ``radio.fault_keys``).  Contract: ``cell_state``, attachment and RB
-grants exact (near ties counted as ``torch_parity`` does), throughput and
-backlog rtol 1e-4.
+zero-rate faults bitwise equal to faults off, a SLEEP cell attenuated,
+reattachment conservation under the storm, dense == incremental under the
+storm, faults composing with churn and the batch axis, faults + relax
+raising, the ``outage_storm`` engine under full-buffer traffic, and
+parameter validation; the Poisson-traffic storm runs (engine and env) are
+in tests/test_torch_faults_storm.py and the DOWN cell's in
+tests/test_torch_faults_dark.py.  Parity runs hand the port the
+reference's draws (``torch_parity.ReplayDraws``, which replays
+``radio.fault_keys``).  Contract: ``cell_state``, attachment and RB grants
+exact (near ties counted as ``torch_parity`` does), throughput and backlog
+rtol 1e-4.
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core.params import CRRM_parameters as JParams
-from repro.env.crrm_env import CrrmEnv as JEnv
 from repro.mac import engine as j_engine
 from repro.sim import faults as j_faults
 from repro.sim import radio as j_radio
 from repro.sim import scenarios as j_scen
 from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters as TParams
-from repro_torch.env.crrm_env import CrrmEnv as TEnv
 from repro_torch.mac import engine as t_engine
 from repro_torch.mac.engine import Draws
 from repro_torch.sim import faults as t_faults
 from repro_torch.sim import mobility as t_mob
 from repro_torch.sim import scenarios as t_scen
 from repro_torch.sim.faults import DOWN, SLEEP, UP
-from torch_parity import (RTOL_TPUT, ReplayDraws, carried, check_env_step,
-                          check_state, check_telemetry, env_draws, np_, pair,
-                          port_of)
+from torch_parity import (RTOL_TPUT, ReplayDraws, carried, check_state,
+                          check_telemetry, np_, pair)
 
 STORM = dict(outage_rate_hz=20.0, mean_outage_s=0.03, sleep_rate_hz=20.0,
              mean_sleep_s=0.02, sleep_atten_db=10.0)
@@ -144,24 +143,6 @@ def test_scenario_faults_off_override_restores_legacy_treedef():
     assert _roll(storm, n_tti=4, faults=0)[0].cell_state is None
 
 
-def test_down_cell_is_dark():
-    """A cell seeded DOWN (frozen chain) serves zero bits, is granted
-    zero RBs and is nobody's serving cell; the port matches the reference
-    on the same draws."""
-    dark, cs = 2, np.full(5, UP, np.int32)
-    cs[dark] = DOWN
-    params = JParams(**dict(BASE, n_ues=32, n_cells=5),
-                     faults=j_faults.FaultConfig(**FROZEN))
-    out_j, out_t = fault_pair(params, n_tti=15, key=1, cell_state=cs)
-    check_pair(out_j, out_t)
-    s, _, telem = out_t
-    assert float(telem.served_bits[:, dark].sum()) == 0.0
-    assert float(telem.granted_rb[:, dark].sum()) == 0.0
-    assert not (s.serving == dark).any()
-    assert float(telem.served_bits.sum()) > 0.0
-    np.testing.assert_array_equal(np_(s.cell_state), cs)
-
-
 def test_sleep_cell_attenuated_not_dark():
     p = _params(n_ues=48, n_cells=5, seed=2)
     sim = CRRM(p, device="cpu")
@@ -205,13 +186,10 @@ def test_reattachment_conservation_under_storm():
     assert saw_down > 5
 
 
-@pytest.mark.parametrize("radio_mode,policy,traffic", [
-    ("dense", "pf", "full_buffer"), ("incremental", "pf", "full_buffer"),
-    ("dense", "rr", "poisson"), ("incremental", "rr", "poisson")])
-def test_storm_engine_matches_reference(radio_mode, policy, traffic):
+def check_storm(radio_mode, policy, traffic):
     """``outage_storm`` (A3, Rayleigh fading, mobility) at 24 UEs x 6
-    cells, both radio modes, on the reference's draws; the incremental
-    port re-derives the per-UE outputs from its carried gains, branch-free.
+    cells on the reference's draws, 20 TTIs; the incremental port
+    re-derives the per-UE outputs from its carried gains, branch-free.
     Bursty traffic runs with rr, whose grants are exact integers: under pf
     an ulp of the per-cell share can leave a backlog residue in one
     package and not the other, which flips an active mask (the hazard of
@@ -221,6 +199,14 @@ def test_storm_engine_matches_reference(radio_mode, policy, traffic):
                                   scheduler_policy=policy,
                                   traffic_model=traffic)
     check_pair(*fault_pair(params, n_tti=20, key=0))
+
+
+@pytest.mark.parametrize("radio_mode,policy,traffic", [
+    ("dense", "pf", "full_buffer"), ("incremental", "pf", "full_buffer")])
+def test_storm_engine_matches_reference(radio_mode, policy, traffic):
+    """:func:`check_storm` under full-buffer traffic, both radio modes;
+    the Poisson cases run in tests/test_torch_faults_storm.py."""
+    check_storm(radio_mode, policy, traffic)
 
 
 def test_dense_equals_incremental_under_storm():
@@ -293,36 +279,6 @@ def test_fault_params_validation():
     with pytest.raises(ValueError):
         # per-TTI probability above 1 at tti_s=1ms
         _params(faults=t_faults.FaultConfig(outage_rate_hz=2000.0))
-
-
-def test_outage_storm_env_matches_reference():
-    """``CrrmEnv(scenario="outage_storm")`` at 24 UEs x 6 cells with
-    telemetry: reset and two steps (one with an action and a fairness
-    override) on the reference's draws.  The reference cannot autoreset
-    under faults (ROADMAP queue 3), so the port's ``step_autoreset`` is
-    held to a fresh episode of its own: the fault leaf restarts all-UP."""
-    params = j_scen.make_scenario("outage_storm", n_ues=24, n_cells=6)
-    kw = dict(episode_tti=2, tti_per_step=1, telemetry=True)
-    ref = JEnv(params=params, **kw)
-    port = TEnv(sim=port_of(ref.sim), draws=env_draws(ref), **kw)
-    sj, _ = ref.reset(jax.random.PRNGKey(3))
-    st, _ = port.reset(3)
-    check_state(st, sj)
-    act = np.random.default_rng(0).uniform(
-        0.0, port.max_cell_power_W, port.action_shape).astype(np.float32)
-    with jax.disable_jit(True):
-        out_j = ref.step(sj, ref.uniform_action())
-        out_t = port.step(st, port.uniform_action())
-        check_env_step(out_t, out_j)
-        out_j = ref.step(out_j[0], jnp.asarray(act), jnp.float32(0.2))
-        out_t = port.step(out_t[0], act, 0.2)
-        check_env_step(out_t, out_j)
-    assert bool(out_t[3]) and out_t[0].cell_state.shape == (6,)
-    s_ar, *_ = port.step_autoreset(out_t[0], None, 7)
-    fresh, _ = port.reset(7)
-    assert torch.equal(s_ar.cell_state, torch.zeros(6, dtype=torch.int32))
-    for a, b in zip(s_ar, fresh):
-        assert b is None or torch.equal(a, b)
 
 
 def test_convert_carries_the_new_leaves_and_batches():

@@ -157,8 +157,10 @@ def test_crrm_default_drop_is_seeded_and_in_region():
 
 def test_later_slices_raise_not_implemented():
     sim = TCRRM(TParams(n_ues=8, n_cells=3), device="cpu")
-    # churn and faults are ported (tests/test_torch_{churn,faults}.py)
-    for kw in (dict(mesh=object()), dict(relax=object()),
-               dict(cell_axis="c")):
+    # churn, faults and relax are ported
+    # (tests/test_torch_{churn,faults,relax}.py); the mesh waits
+    for kw in (dict(mesh=object()), dict(cell_axis="c")):
         with pytest.raises(NotImplementedError, match="slice"):
             sim.episode_fns(**kw)
+    from repro_torch.sim.radio import RelaxConfig
+    assert sim.episode_fns(relax=RelaxConfig()).rollout is not None

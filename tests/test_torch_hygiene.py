@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-An ``ast`` scan of every module of ``src/repro_torch`` and of
-``chip_smoke.py`` finds no import of ``jax``, ``repro`` or ``msgpack``; a
+An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``
+and of the fixture loader it reads (``tests/relax_fixture.py``) finds no
+import of ``jax``, ``repro`` or ``msgpack``; a
 fresh interpreter that imports every port module has not loaded ``jax``; the
 entry points default to the card and raise without one.
 """
@@ -20,14 +21,15 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "relax_fixture.py"]
 
 
 def test_the_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in port_files()
                if PORT in p.parents}
     assert {"core", "sim", "mac", "kernels", "obs", "env", "train",
-            "robust", "twin"} <= scanned
+            "robust", "twin", "rl"} <= scanned
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
@@ -36,7 +38,10 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.kernels.ref", "repro_torch.tree",
               "repro_torch.train.checkpoint", "repro_torch.robust.guard",
               "repro_torch.robust.watchdog", "repro_torch.robust.chaos",
-              "repro_torch.twin.server"):
+              "repro_torch.twin.server", "repro_torch.train.optim",
+              "repro_torch.rl", "repro_torch.rl.policy",
+              "repro_torch.rl.rollout", "repro_torch.rl.ppo",
+              "repro_torch.rl.diffopt"):
         assert m in names, m
 
 

@@ -2,8 +2,8 @@
 package's: 10 % window movers, the dirty rows through ``inc_backend=
 "fused"`` (the kernel's plain version on the CPU) against the reference's
 XLA rows, three chunks of 10 TTIs under full-buffer traffic; the contract
-of tests/test_torch_twin.py.  A file of its own because the eager
-reference compiles the incremental primitives anew (~15 s)."""
+of tests/test_torch_twin.py.  The reference serves compiled (full-buffer
+traffic drains no backlog, so it leaves no residue to round)."""
 from test_torch_twin import MOVING, check_three_chunks, full_buffer_pair
 
 

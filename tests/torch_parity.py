@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core.crrm import CRRM as JCRRM
@@ -285,6 +286,17 @@ def run_pair(params, n_tti=20, key=0, fairness_p=None, **kw):
 RUNNABLE_SCENARIOS = [n for n in j_scen.scenario_names()
                       if n != "outage_storm"]
 ENV_SMALL = dict(episode_tti=2, tti_per_step=1, telemetry=True)
+#: the runnable presets of each file's env-episode check
+#: (:func:`check_env_episode`): under bursty traffic the eager reference
+#: compiles every primitive of a preset anew, so the presets are spread
+#: over files to keep each under a minute (tests/test_torch_env.py holds
+#: the cover)
+ENV_GROUPS = {
+    "test_torch_env": ("dense_urban", "dense_urban_mobile"),
+    "test_torch_env_twin": ("dense_urban_twin",),
+    "test_torch_env_handover": ("handover_stress",),
+    "test_torch_env_scenarios": ("indoor_hotspot", "rural_macro"),
+}
 
 
 def env_pair(name, resample=False, **kw):
@@ -366,3 +378,79 @@ def first_divergence(tput_port, tput_ref, tti_s):
     sub = lambda x: (x > 0.0) & (x < 1.0)
     flip = (sub(bits_a) | sub(bits_b)) & (bits_a != bits_b)
     return t, bool(flip.any())
+
+
+def check_env_episode(name):
+    """reset, a uniform step, a random-action step with a fairness
+    override (reaching ``done``), then ``step_autoreset`` across the
+    episode boundary, against the reference env of preset ``name``."""
+    ref, port = env_pair(name)
+    sj, oj = ref.reset(jax.random.PRNGKey(3))
+    st, ot = port.reset(3)
+    check_state(st, sj)
+    assert int(st.seed) == 3
+    np.testing.assert_array_equal(np_(ot.tput), np_(oj.tput))
+    act = np.random.default_rng(0).uniform(
+        0.0, port.max_cell_power_W, port.action_shape).astype(np.float32)
+    with jax.disable_jit(bursty(ref)):
+        out_j = ref.step(sj, ref.uniform_action())
+        out_t = port.step(st, port.uniform_action())
+        check_env_step(out_t, out_j)
+        out_j = ref.step(out_j[0], jnp.asarray(act), jnp.float32(0.2))
+        out_t = port.step(out_t[0], act, 0.2)
+        check_env_step(out_t, out_j)
+        assert bool(out_t[3])
+        ar_j = ref.step_autoreset(out_j[0], None, jax.random.PRNGKey(7))
+        ar_t = port.step_autoreset(out_t[0], None, 7)
+    check_env_step((out_t[0],) + ar_t[1:], (out_j[0],) + ar_j[1:])
+    fresh_j, _ = ref.reset(jax.random.PRNGKey(7))
+    check_state(ar_t[0], fresh_j)
+    assert int(ar_t[0].seed) == 7
+
+
+def check_resampled_reset(name):
+    """``resample_topology=True``: the reset of seed 11 redraws the field
+    and fading (exact), reruns the chain (attachment exact, CQI/SE exact
+    off the steps), and the first step holds the env contract; the
+    reference's reset state, carried over, steps as the port's own.
+
+    The step is one TTI (``ENV_SMALL``), so the reference steps compiled
+    under any traffic: a drained-backlog residue of the compiled program
+    (~1e-3 bits, within the contract's atol) can part two trajectories
+    only at a later TTI, by counting as demand there."""
+    ref, port = env_pair(name, resample=True)
+    sj, _ = ref.reset(jax.random.PRNGKey(11))
+    st, _ = port.reset(11)
+    np.testing.assert_array_equal(np_(st.ep.U), np_(sj.ep.U))
+    np.testing.assert_array_equal(np_(st.static.fad), np_(sj.static.fad))
+    # the chain on the redrawn field: attachment and CQI/SE exact
+    out = j_radio.radio_forward(ref.sim.radio_static(), sj.ep.U,
+                                fad=sj.static.fad)
+    G0 = j_radio.pathgains(ref.sim.radio_config(), sj.ep.U, ref.sim.C._data,
+                           ref.sim.boresight._data)
+    cfg = ref.sim.radio_config()
+    meas = j_radio.rsrp(G0 if cfg.rayleigh_fading and cfg.attach_ignores_fading
+                        else j_radio.apply_fading(G0, sj.static.fad),
+                        ref.sim.P._data).sum(axis=-1)
+    assert_attachment(st.static.a, sj.static.a, meas)
+    assert_cqi(st.static.cqi, sj.static.cqi, out.gamma)
+    assert_cqi(st.static.se, sj.static.se, out.gamma)
+    check_state(st.ep, sj.ep)
+    out_j = ref.step(sj, ref.uniform_action())
+    out_t = port.step(st, port.uniform_action())
+    check_env_step(out_t, out_j)
+    obs = convert.env_obs({k: np_(v) for k, v in out_j[1]._asdict().items()},
+                          DEV)
+    np.testing.assert_allclose(np_(obs.tput), np_(out_t[1].tput), rtol=1e-4,
+                               atol=1.0)
+    # the reference's reset state, carried over, steps like the port's own
+    as_dict = lambda nt: {k: np_(v) for k, v in nt._asdict().items()
+                          if v is not None}
+    carried = convert.topo_env_state(
+        {"ep": dict(as_dict(sj.ep), seed=np.int64(11)),
+         "static": as_dict(sj.static)}, DEV)
+    out_c = port.step(carried, port.uniform_action())
+    check_env_step(out_c, out_j)
+    assert torch.equal(out_c[0].ep.U, out_t[0].ep.U)
+    with pytest.raises(ValueError, match="resample_topology"):
+        port.step_autoreset(st, None, 1)
