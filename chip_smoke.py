@@ -96,11 +96,29 @@ Phases, each printing its own lines:
               ``PPOConfig``'s defaults (n_envs 8, n_steps 16): ms per
               iteration, kernel launches per collected TTI, peak memory;
               then 2 iterations + checkpoint + restore + 2 held equal to 4
-              bit for bit in deterministic mode.
+              bit for bit in deterministic mode;
+15. mesh   -- ``core.distributed`` on the one card, ranks started with
+              ``torch.multiprocessing`` (spawn), every group with a
+              timeout and every rank joined against a deadline: (1) the
+              million-UE episode on a 1-rank NCCL ("ue",) mesh, bit for
+              bit against the plain rollout in deterministic mode, one
+              fused_sinr launch per TTI, ms/TTI beside phase 6's; then
+              gloo ranks sharing the card with CUDA tensors (NCCL refuses
+              two ranks on one GPU): (2) BENCH_sharded's 100 000 x 19 pf
+              episode, 50 TTIs, on a UE mesh of 2, held to 1e-5 of one
+              device in deterministic mode (also printed with the atomics
+              in no fixed order, beside two single-device runs), rr and
+              max_cqi bitwise; (3) the million-UE episode on a UE mesh of
+              2, one fused_sinr launch per rank per TTI; (4) phase 3's
+              sect3 field as an engine (100 000 x 126, A3, dense) on UE x
+              cell meshes (1, 2) and (2, 2), and the fused route's
+              refusal; (5) the three step makers on (1, 2) at 100 000 x
+              126, K = 2, against the single-device CRRM.  Times of ranks
+              sharing one card are a record, not a scaling.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo) sets every kernel's launch count to 0 just before it and reads the
-counts just after; phases 13 and 14 launch neither kernel (the relaxed
+ppo, and each mesh run in its own rank) sets every kernel's launch count
+to 0 just before it and reads the counts just after; phases 13 and 14 launch neither kernel (the relaxed
 chain is the torch one: fused_sinr has no backward) and fail if one
 launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
@@ -864,7 +882,7 @@ def phase_episode():
         f"max rel err {rel:.3e}")
     if rel > RTOL:
         raise AssertionError(f"incremental deviates from dense: {rel:.3e}")
-    return launches
+    return launches, ms
 
 
 def env_step_ms(env, state, action, fairness_p=None):
@@ -1849,13 +1867,431 @@ def phase_ppo():
     no_launches("ppo")
 
 
+# -- phase 15: the mesh ------------------------------------------------------
+#: seconds a collective waits for a peer, and a spawn for all its ranks
+MESH_TIMEOUT_S = 300
+MESH_DEADLINE_S = 600
+#: BENCH_sharded's shape (benchmarks/paper_benches.py::sharded_episode)
+BENCH_SHARDED = dict(n_ues=100_000, n_cells=19, n_sectors=1, seed=3,
+                     pathloss_model_name="UMa", power_W=10.0,
+                     scheduler_policy="pf", fairness_p=0.5)
+#: phase 3's sect3 field as an engine: 126 cells divide over 2 cell shards
+SECT3 = dict(n_ues=100_000, n_cells=126, n_sectors=3, seed=3,
+             pathloss_model_name="UMa", power_W=10.0, scheduler_policy="pf",
+             fairness_p=0.5, mobility_step_m=20.0, mobility_move_frac=0.1,
+             ho_enabled=True)
+
+
+def bench_err(got, want):
+    """``BENCH_sharded``'s measure: max |difference| / max(max |want|, 1)."""
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
+
+
+def deterministic(fn):
+    """``fn()`` in PyTorch's deterministic mode (index_add_ in a fixed
+    order), switched off after."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def mesh_million(job):
+    """Item 1: the million-UE episode of phase 6 on a 1-rank ("ue",) mesh
+    (the NCCL path), against the plain rollout bit for bit in deterministic
+    mode; launches of the mesh run and ms/TTI of both."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws
+    mesh = make_mesh((1,), ("ue",))
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, radio_mode="incremental",
+                               **EPISODE))
+    plain = sim.episode_fns(inc_backend="fused")
+    sharded = sim.episode_fns(inc_backend="fused", mesh=mesh)
+    static, state = sim.episode_static(), sim.init_episode_state()
+    n_tti = 5
+
+    def both():
+        s1, t1 = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+        torch.cuda.synchronize()
+        zero_counts()
+        s2, t2 = sharded.rollout(static, state, n_tti, Draws(3, "cuda"))
+        torch.cuda.synchronize()
+        return (torch.equal(t1, t2) and leaves_equal(s1, s2),
+                launch_counts()["fused_sinr"], bench_err(t2, t1))
+    equal, launches, err = deterministic(both)
+    return dict(equal=equal, launches=launches, n_tti=n_tti, err=err,
+                ms_plain=per_tti_ms(plain, static, state, Draws(3, "cuda")),
+                ms_mesh=per_tti_ms(sharded, static, state, Draws(3, "cuda")),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def mesh_bench(job):
+    """Item 2 on a UE mesh of all the ranks: BENCH_sharded's pf episode
+    (50 TTIs) against one device in deterministic mode (held), and with
+    the atomics of ``index_add_`` in no fixed order (a record, beside two
+    such single-device runs against each other: the card's own noise);
+    ms/TTI of both; rr and max_cqi (10 TTIs) bit for bit in deterministic
+    mode."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws
+    import torch.distributed as tdist
+    mesh = make_mesh((tdist.get_world_size(),), ("ue",))
+    out = {}
+    for policy, n_tti in (("pf", 50), ("rr", 10), ("max_cqi", 10)):
+        torch.cuda.reset_peak_memory_stats()
+        sim = CRRM(CRRM_parameters(**dict(BENCH_SHARDED,
+                                          scheduler_policy=policy)))
+        plain, sharded = sim.episode_fns(), sim.episode_fns(mesh=mesh)
+        static, state = sim.episode_static(), sim.init_episode_state()
+
+        def both():
+            s1, t1 = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+            s2, t2 = sharded.rollout(static, state, n_tti, Draws(3, "cuda"))
+            return (bench_err(t2, t1), torch.equal(t2, t1)
+                    and leaves_equal(s1, s2),
+                    torch.equal(s1.serving, s2.serving)
+                    and torch.equal(static.a, sim.get_attachment()),
+                    [bench_err(t2[:k], t1[:k]) for k in range(10, 51, 10)])
+        err, equal, serving, by_tti = deterministic(both)
+        out[policy] = dict(err=err, equal=equal, serving=serving,
+                           n_tti=n_tti, by_tti=by_tti)
+        if policy == "pf":
+            _, t_a = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+            _, t_b = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+            out[policy].update(
+                err_atomics=both()[0], err_single_twice=bench_err(t_b, t_a),
+                ms_single=per_tti_ms(plain, static, state, Draws(3, "cuda")),
+                ms_mesh=per_tti_ms(sharded, static, state, Draws(3, "cuda")),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del sim, plain, sharded, static, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_million_pair(job):
+    """Item 3: the million-UE incremental episode on a UE mesh of all the
+    ranks, each patching its block's movers through fused_sinr; against
+    one device in deterministic mode (per-cell served bits compare the
+    attachment: a UE served from another cell moves its bits there)."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws
+    import torch.distributed as tdist
+    mesh = make_mesh((tdist.get_world_size(),), ("ue",))
+    torch.cuda.reset_peak_memory_stats()
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, radio_mode="incremental",
+                               **EPISODE))
+    plain = sim.episode_fns(inc_backend="fused", telemetry=True)
+    sharded = sim.episode_fns(inc_backend="fused", telemetry=True, mesh=mesh)
+    static, state = sim.episode_static(), sim.init_episode_state()
+    n_tti = 5
+
+    def both():
+        s1, t1, l1 = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+        torch.cuda.synchronize()
+        zero_counts()
+        s2, t2, l2 = sharded.rollout(static, state, n_tti, Draws(3, "cuda"))
+        torch.cuda.synchronize()
+        launches = launch_counts()["fused_sinr"]
+        cell = float(((l2.served_bits - l1.served_bits).abs()
+                      / l1.served_bits.abs().clamp(min=1.0)).max())
+        return (launches, bench_err(t2, t1), cell,
+                torch.equal(s1.U, s2.U) and torch.equal(s1.serving,
+                                                         s2.serving),
+                torch.equal(l1.dirty_rows, l2.dirty_rows))
+    launches, err, cell, exact, dirty = deterministic(both)
+    return dict(launches=launches, n_tti=n_tti, err=err, cell_err=cell,
+                exact=exact, dirty=dirty,
+                ms_mesh=per_tti_ms(sharded, static, state, Draws(3, "cuda")),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def mesh_cells(job):
+    """Item 4 on a UE x cell mesh of ``job["shape"]``: the sect3 field
+    dense with A3 handover (the cross-shard argmax decides every
+    handover) against one device; the fused route's refusal."""
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.core.params import CRRM_parameters
+    import dataclasses
+    from repro_torch.mac.engine import Draws, make_episode_fns
+    mesh = make_mesh(job["shape"], ("ue", "cell"))
+    torch.cuda.reset_peak_memory_stats()
+    sim = CRRM(CRRM_parameters(**SECT3))
+    plain = sim.episode_fns()
+    sharded = sim.episode_fns(mesh=mesh, cell_axis="cell")
+    static, state = sim.episode_static(), sim.init_episode_state()
+    n_tti = 5
+    s1, t1 = plain.rollout(static, state, n_tti, Draws(3, "cuda"))
+    s2, t2 = sharded.rollout(static, state, n_tti, Draws(3, "cuda"))
+    state_err = bench_err(s2.pf_avg, s1.pf_avg)
+    try:       # the fused route on the same mesh, without A3's tables
+        make_episode_fns(
+            dataclasses.replace(sim.params, ho_enabled=False), sim.n_ues,
+            sim.n_cells, sim.radio_config(), sim._traffic_step, mesh=mesh,
+            cell_axis="cell", radio_mode="incremental", inc_backend="fused",
+            mobility_step_m=SECT3["mobility_step_m"])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    return dict(err=bench_err(t2, t1), state_err=state_err, n_tti=n_tti,
+                exact=torch.equal(s1.U, s2.U)
+                and torch.equal(s1.serving, s2.serving)
+                and torch.equal(s1.ttt, s2.ttt),
+                handovers=int((s1.serving != static.a).sum()),
+                refusal=refusal,
+                ms_single=per_tti_ms(plain, static, state, Draws(3, "cuda")),
+                ms_mesh=per_tti_ms(sharded, static, state, Draws(3, "cuda")),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def mesh_steps(job):
+    """Item 5: the three step makers of ``core.distributed`` on a (1, 2)
+    mesh at 100 000 UEs x 126 cells, K = 2, against the port's
+    single-device CRRM on the same inputs."""
+    import numpy as np
+    from repro_torch.core import distributed as D
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.sim import phy
+    from repro_torch.sim.pathloss import make_pathloss
+    n, m, k, extent = 100_000, 126, 2, 8000.0
+    rng = np.random.default_rng(11)
+    U = np.column_stack([rng.uniform(0, extent, (n, 2)),
+                         np.full((n, 1), 1.5)]).astype(np.float32)
+    C = np.column_stack([rng.uniform(0, extent, (m, 2)),
+                         np.full((m, 1), 25.0)]).astype(np.float32)
+    Pw = np.full((m, k), 5.0, np.float32)
+    params = CRRM_parameters(n_ues=n, ue_positions=U, cell_positions=C,
+                             power_matrix=Pw, n_subbands=k,
+                             pathloss_model_name="UMa")
+    ref = CRRM(params)
+    g1, a1 = ref.get_SINR().clone(), ref.get_attachment().clone()
+    t1 = ref.throughput.update().clone()
+    w1, u1 = ref.w.update().clone(), ref.u.update().clone()
+    Ut, Ct, Pt = (torch.as_tensor(x, device="cuda") for x in (U, C, Pw))
+    mesh = D.make_mesh((1, 2), ("data", "model"))
+    args = (mesh, make_pathloss("UMa").get_pathgain, params.subband_noise_W,
+            m, params.subband_bandwidth_Hz, 0.0)
+    out = {}
+    for name in ("materialized", "streaming"):
+        gamma, a, tput = getattr(D, f"make_{name}_step")(*args)(Ut, Ct, Pt)
+        out[f"make_{name}_step"] = sinr_tput_errors(
+            gamma, a, tput, g1, a1, t1, w1, u1, params.subband_noise_W, phy)
+    # incremental: 1 000 rows move; the single device moves them too
+    g = np.random.default_rng(12)
+    idx = g.choice(n, 1000, replace=False).astype(np.int32)
+    new = np.column_stack([g.uniform(0, extent, (1000, 2)),
+                           np.full((1000, 1), 1.5)]).astype(np.float32)
+    R = ref.get_RSRP()
+    bv = R.sum(dim=2).max(dim=1).values
+    f = D.make_incremental_rows_step(*args)
+    U2, w2, u2, a2, bv2, t2 = f(Ut, Ct, Pt, w1, u1, a1, bv,
+                                torch.as_tensor(idx, device="cuda"),
+                                torch.as_tensor(new, device="cuda"))
+    ref.move_UEs(idx, new)
+    out["make_incremental_rows_step"] = sinr_tput_errors(
+        w2 / (params.subband_noise_W + u2), a2, t2, ref.get_SINR(),
+        ref.get_attachment(), ref.throughput.update(), ref.w.update(),
+        ref.u.update(), params.subband_noise_W, phy)
+    return out
+
+
+def sinr_tput_errors(gamma, a, tput, g1, a1, t1, w1, u1, noise_w, phy):
+    """The SINR and throughput errors of a step maker against the single
+    device: the flat max relative SINR error, the entries past rtol 1e-3
+    and whether each lies within rtol 1e-5 times the condition number of
+    w / (noise + total - w) (the psum reorders total; where w dominates,
+    u = total - w is a small difference of two large sums); the entries
+    whose CQI differs (a step straddled) and the throughput error on the
+    others."""
+    rel = (gamma - g1).abs() / g1.abs().clamp(min=1e-30)
+    w64, u64 = w1.double(), u1.double()
+    kappa = 1.0 + (2 * w64 + u64) / (noise_w + u64)
+    past = rel > 1e-3
+    within = bool(((gamma - g1).abs().double()
+                   <= 1e-5 * kappa * g1.abs().double())[past].all())
+    straddle = (phy.sinr_db_to_cqi(phy.sinr_to_db(gamma))
+                != phy.sinr_db_to_cqi(phy.sinr_to_db(g1)))
+    keep = ~straddle.any(dim=1)
+    d = (tput - t1).abs()[keep]
+    return dict(attach=bool(torch.equal(a, a1)), sinr_rel=float(rel.max()),
+                past=int(past.sum()), past_within=within,
+                max_kappa=float(kappa[past].max()) if past.any() else 0.0,
+                straddle=int(straddle.sum()),
+                tput_rel=float((d / t1.abs()[keep].clamp(min=1.0)).max()),
+                tput_ok=bool((d <= 1e-3 * t1.abs()[keep] + 1.0).all()))
+
+
+MESH_JOBS = {"million": mesh_million, "bench": mesh_bench,
+             "million_pair": mesh_million_pair, "cells": mesh_cells,
+             "steps": mesh_steps}
+
+
+def _mesh_rank(rank, world, backend, d, jobs):
+    """One rank: join the group (with a timeout), run ``jobs`` in order,
+    write the outputs; on any failure write the traceback and exit 1."""
+    import datetime
+    import traceback
+    import torch.distributed as tdist
+    try:
+        torch.cuda.set_device(0)
+        tdist.init_process_group(
+            backend, store=tdist.FileStore(f"{d}/store", world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            out = [MESH_JOBS[j["name"]](j) for j in jobs]
+        finally:
+            tdist.destroy_process_group()
+        torch.save(out, f"{d}/rank{rank}.pt")
+    except BaseException:
+        with open(f"{d}/rank{rank}.err", "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        raise SystemExit(1)
+
+
+def spawn_ranks(world, backend, jobs):
+    """Run ``jobs`` on ``world`` ranks of ``backend`` sharing the card,
+    started with torch.multiprocessing's spawn; every rank is joined
+    against one deadline and killed past it.  A failed rank raises."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=root) as d:
+        ctx = tmp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, world, backend, d, jobs))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                if time.monotonic() > end:
+                    raise TimeoutError(f"mesh ranks still running after "
+                                       f"{MESH_DEADLINE_S} s")
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errs = [Path(d, f"rank{r}.err").read_text() for r in range(world)
+                if Path(d, f"rank{r}.err").exists()]
+        if errs or any(p.exitcode != 0 for p in procs):
+            raise RuntimeError(f"mesh ranks failed (exit codes "
+                               f"{[p.exitcode for p in procs]}):\n"
+                               + "\n".join(errs))
+        return [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def phase_mesh(smi, ms_phase6):
+    """Phase 15: the mesh, on the one card.  NCCL as a 1-rank group; the
+    multi-rank runs as gloo ranks sharing the card with CUDA tensors (NCCL
+    refuses two ranks on one GPU), so their times are a record only."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (one,), = spawn_ranks(1, "nccl", [dict(name="million")])
+    log("mesh", f"1. nccl, 1 rank ({smi}): the 1M x 127 incremental episode "
+        f"on a ('ue',) mesh of 1: fused_sinr launches {one['launches']} "
+        f"over {one['n_tti']} TTIs ({one['launches'] / one['n_tti']:g} per "
+        f"TTI); equal to the plain rollout bit for bit in deterministic "
+        f"mode: {one['equal']}; {one['ms_mesh']:.3f} ms/TTI on the mesh, "
+        f"{one['ms_plain']:.3f} plain in the same rank, {ms_phase6:.3f} in "
+        f"phase 6; peak {one['peak_gib']:.2f} GiB")
+    if not one["equal"] or one["launches"] != one["n_tti"]:
+        raise AssertionError(f"mesh 1: {one}")
+    pair = spawn_ranks(2, "gloo", [
+        dict(name="bench"), dict(name="million_pair"),
+        dict(name="cells", shape=(1, 2)), dict(name="steps")])
+    for r, (bench, million, cells, steps) in enumerate(pair):
+        pf = bench["pf"]
+        log("mesh", f"2. gloo, rank {r} of 2 on one card ({smi}): "
+            f"BENCH_sharded 100000 x 19 pf 50 TTIs: err {pf['err']:.3e} "
+            f"(max |d| / max(max |tput|, 1), limit 1e-5) in deterministic "
+            f"mode; {pf['err_atomics']:.3e} with index_add_'s atomics in no "
+            f"fixed order, where two single-device runs differ by "
+            f"{pf['err_single_twice']:.3e}; deterministic err over the "
+            f"first 10, 20, .. TTIs: "
+            f"{', '.join(f'{e:.2e}' for e in pf['by_tti'])}; serving "
+            f"{'exact' if pf['serving'] else 'DIFFERS'}; {pf['ms_mesh']:.3f} "
+            f"ms/TTI sharded, {pf['ms_single']:.3f} single; peak "
+            f"{pf['peak_gib']:.2f} GiB; rr 10 TTIs bitwise "
+            f"{bench['rr']['equal']}, max_cqi 10 TTIs bitwise "
+            f"{bench['max_cqi']['equal']}")
+        log("mesh", f"3. gloo, rank {r} of 2: 1M incremental on a UE mesh "
+            f"of 2: fused_sinr launches {million['launches']} over "
+            f"{million['n_tti']} TTIs; err {million['err']:.3e}, per-cell "
+            f"served bits {million['cell_err']:.3e}, positions and serving "
+            f"exact {million['exact']}, dirty rows equal {million['dirty']}; "
+            f"{million['ms_mesh']:.3f} ms/TTI ({smi}); peak "
+            f"{million['peak_gib']:.2f} GiB")
+        log("mesh", f"4. gloo, rank {r} of 2: UE x cell (1, 2), sect3 "
+            f"100000 x 126 dense with A3, 5 TTIs: err {cells['err']:.3e}, "
+            f"pf_avg {cells['state_err']:.3e}, positions/serving/ttt exact "
+            f"{cells['exact']} ({cells['handovers']} UEs handed over); "
+            f"{cells['ms_mesh']:.3f} ms/TTI sharded, {cells['ms_single']:.3f} "
+            f"single ({smi}); peak {cells['peak_gib']:.2f} GiB; fused "
+            f"refused: {cells['refusal']}")
+        for name, e in steps.items():
+            log("mesh", f"5. gloo, rank {r} of 2: {name} (1, 2) "
+                f"100000 x 126, K = 2: attachment exact {e['attach']}; SINR "
+                f"max rel err {e['sinr_rel']:.3e}, {e['past']} entries past "
+                f"rtol 1e-3, all within 1e-5 x condition number "
+                f"{e['past_within']} (largest {e['max_kappa']:.3g}); "
+                f"{e['straddle']} entries straddle a CQI step; throughput max "
+                f"rel err {e['tput_rel']:.3e} on the rest (rtol 1e-3, atol 1)")
+        bad = [f"2 {p}" for p in ("pf", "rr", "max_cqi")
+               if not bench[p]["serving"]]
+        bad += ["2 pf err"] if pf["err"] > 1e-5 else []
+        bad += [f"2 {p} bitwise" for p in ("rr", "max_cqi")
+                if not bench[p]["equal"]]
+        bad += ["3 launches"] if million["launches"] != million["n_tti"] \
+            else []
+        bad += ["3 err"] if max(million["err"], million["cell_err"]) > 1e-5 \
+            or not million["exact"] or not million["dirty"] else []
+        bad += ["4"] if cells["err"] > 1e-5 or cells["state_err"] > 1e-5 \
+            or not cells["exact"] or cells["refusal"] is None else []
+        bad += [f"5 {n}" for n, e in steps.items()
+                if not (e["attach"] and e["past_within"] and e["tput_ok"])]
+        if bad:
+            raise AssertionError(f"mesh rank {r}: {bad}")
+    quad = spawn_ranks(4, "gloo", [dict(name="cells", shape=(2, 2))])
+    for r, (cells,) in enumerate(quad):
+        log("mesh", f"4. gloo, rank {r} of 4: UE x cell (2, 2), the same "
+            f"episode: err {cells['err']:.3e}, pf_avg "
+            f"{cells['state_err']:.3e}, positions/serving/ttt exact "
+            f"{cells['exact']}; {cells['ms_mesh']:.3f} ms/TTI sharded, "
+            f"{cells['ms_single']:.3f} single ({smi}); peak "
+            f"{cells['peak_gib']:.2f} GiB")
+        if cells["err"] > 1e-5 or cells["state_err"] > 1e-5 \
+                or not cells["exact"]:
+            raise AssertionError(f"mesh (2, 2) rank {r}: {cells}")
+    log("mesh", f"phase 15 in {time.perf_counter() - t0:.1f} s; times of "
+        f"ranks sharing one card are a record, not a multi-GPU scaling")
+    return one
+
+
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     rows = phase_kernel()
     dist = phase_pairwise(smi)
     phase_forward()
-    launches = phase_episode()
+    launches, ms_episode = phase_episode()
     phase_env()
     phase_churn()
     phase_faults()
@@ -1864,6 +2300,7 @@ def main():
     phase_chaos()
     phase_diffopt()
     phase_ppo()
+    phase_mesh(smi, ms_episode)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

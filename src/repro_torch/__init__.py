@@ -6,7 +6,9 @@ physics leaves), ``mac`` (traffic, scheduler, the TTI engine) and
 ``kernels`` (the hand-written CUDA kernel behind the fused backend).
 
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``); nothing falls back from one to the other.
+(``device="cpu"``); nothing falls back from one to the other.  The
+``core.distributed`` mesh shards the engine over ``torch.distributed``
+ranks.
 """
 import torch
 
@@ -20,9 +22,3 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run on the CPU")
     return dev
 
-
-def not_in_slice(feature: str, slice_name: str):
-    """The error for a feature of the JAX package that is not ported yet."""
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (waits for the "
-        f"{slice_name} slice; see ROADMAP.md)")

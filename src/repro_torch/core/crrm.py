@@ -310,25 +310,28 @@ class CRRM:
             fad=self.fading._data)
 
     def episode_fns(self, mobility_step_m=None, per_tti_fading: bool = False,
-                    use_harq=None, radio_mode=None, mobility_move_frac=None,
+                    use_harq=None, mesh=None, ue_axis=("ue",),
+                    cell_axis=None, radio_mode=None, mobility_move_frac=None,
                     inc_backend=None, telemetry: bool = False, churn=None,
-                    relax=None, faults=None, **later):
+                    relax=None, faults=None):
         """The ``(step, rollout)`` episode functions for this simulator,
         cached per switch combination (see ``mac.engine.make_episode_fns``).
-        ``telemetry`` adds a per-TTI KPI tuple to both functions' returns;
-        ``churn`` a ``sim.mobility.ChurnConfig`` turns on the birth-death
-        UE process; ``relax`` a ``sim.radio.RelaxConfig`` the
-        differentiable chain (dense radio only); ``faults`` (default
-        ``params.faults``, ``0`` forces it off) the per-cell fault process.
-        The mesh raises ``NotImplementedError``: it waits for a later
-        slice."""
+        ``mesh`` (a ``core.distributed.Mesh``) shards the UE axis over the
+        ``ue_axis`` mesh axes, and ``cell_axis`` the cells too (a UE x
+        cell mesh); each rank passes the global tensors and gets global
+        ones back.  ``telemetry`` adds a per-TTI KPI tuple to both
+        functions' returns; ``churn`` a ``sim.mobility.ChurnConfig`` turns
+        on the birth-death UE process; ``relax`` a ``sim.radio.RelaxConfig``
+        the differentiable chain (dense radio only); ``faults`` (default
+        ``params.faults``, ``0`` forces it off) the per-cell fault
+        process."""
         from repro_torch.mac import engine as mac_engine
         return mac_engine.episode_fns_for(
             self, mobility_step_m=mobility_step_m,
-            per_tti_fading=per_tti_fading, use_harq=use_harq,
-            radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
-            inc_backend=inc_backend, telemetry=telemetry, churn=churn,
-            relax=relax, faults=faults, **later)
+            per_tti_fading=per_tti_fading, use_harq=use_harq, mesh=mesh,
+            ue_axis=ue_axis, cell_axis=cell_axis, radio_mode=radio_mode,
+            mobility_move_frac=mobility_move_frac, inc_backend=inc_backend,
+            telemetry=telemetry, churn=churn, relax=relax, faults=faults)
 
     def sync_episode_state(self, state, positions: bool = False) -> None:
         """Write a final ``EpisodeState`` back into the graph."""
@@ -351,18 +354,18 @@ class CRRM:
 
     def run_episode(self, n_tti: int, draws=None, mobility_step_m=None,
                     per_tti_fading: bool = False, sync_state: bool = True,
-                    use_harq=None, radio_mode=None, mobility_move_frac=None,
-                    inc_backend=None, telemetry: bool = False, churn=None,
-                    faults=None, **later):
+                    use_harq=None, mesh=None, radio_mode=None,
+                    mobility_move_frac=None, inc_backend=None,
+                    telemetry: bool = False, churn=None, faults=None):
         """Roll ``n_tti`` TTIs; returns (n_tti, n_ues) delivered bits/s, or
         ``(tput, telem)`` with ``telemetry=True``."""
         from repro_torch.mac import engine as mac_engine
         return mac_engine.run_episode(
             self, n_tti, draws=draws, mobility_step_m=mobility_step_m,
             per_tti_fading=per_tti_fading, sync_state=sync_state,
-            use_harq=use_harq, radio_mode=radio_mode,
+            use_harq=use_harq, mesh=mesh, radio_mode=radio_mode,
             mobility_move_frac=mobility_move_frac, inc_backend=inc_backend,
-            telemetry=telemetry, churn=churn, faults=faults, **later)
+            telemetry=telemetry, churn=churn, faults=faults)
 
     # -------------------------------------------------------------- introspection
     def update_counts(self):

@@ -31,8 +31,9 @@ state: every leaf leads with B, and each env keeps its own seed, TTI
 counter and draws, so row b of a batch is the single episode of seed b.
 ``churn=`` runs the birth-death UE process and ``faults=`` the per-cell
 fault process inside every decision window (``faults`` defaults to the
-params', as ``outage_storm`` sets it).  The mesh waits for a later slice
-and raises ``NotImplementedError``.
+params', as ``outage_storm`` sets it).  ``mesh=`` shards the UE axis of
+the engine over a ``core.distributed.Mesh`` (each rank steps the global
+state and gets it back); the batched surfaces then raise.
 
 >>> env = CrrmEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=50),
 ...               device="cpu")
@@ -45,7 +46,6 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_in_slice
 from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.mac.engine import (Draws, env_slice, seed_churn_state,
@@ -166,8 +166,12 @@ class CrrmEnv:
         every decision window and the telemetry gains ``cells_down`` and
         ``reattach_events``.  Defaults to ``params.faults``; ``0`` forces
         it off.
-    mesh:
-        A later slice of the port: anything but ``None`` raises.
+    mesh, ue_axis:
+        Shard the UE axis of the episode engine over the ``ue_axis`` axes
+        of a ``core.distributed.Mesh`` (``episode_fns(mesh=)``).  The
+        sharded program spans the ranks, so the batch surfaces
+        (``reset_batch`` / ``step_batch`` / ``step_autoreset_batch``)
+        raise: batch over seeds or shard over UEs, not both.
     """
 
     def __init__(self, params: Optional[CRRM_parameters] = None, *,
@@ -178,7 +182,8 @@ class CrrmEnv:
                  resample_topology: bool = False, reward_fn=None,
                  radio_mode: Optional[str] = None,
                  telemetry: bool = False, churn=None, faults=None,
-                 mesh=None, device=None, draws=None, sim=None):
+                 mesh=None, ue_axis=("ue",), device=None, draws=None,
+                 sim=None):
         if sum(x is not None for x in (params, scenario, sim)) != 1:
             raise ValueError("pass exactly one of params=, scenario= or "
                              "sim=")
@@ -189,8 +194,6 @@ class CrrmEnv:
             raise ValueError("scenario_overrides requires scenario=")
         if episode_tti < 1 or tti_per_step < 1:
             raise ValueError("episode_tti and tti_per_step must be >= 1")
-        if mesh is not None:
-            raise not_in_slice("CrrmEnv(mesh=...)", "mesh")
         if churn is not None and resample_topology:
             raise ValueError(
                 "churn= is incompatible with resample_topology=True: a "
@@ -209,11 +212,12 @@ class CrrmEnv:
         self._reward_fn = reward_fn or buffer_aware_reward
         self._draws = draws or Draws
         self.telemetry = bool(telemetry)
-        self.churn, self.faults = churn, faults
+        self.churn, self.faults, self.mesh = churn, faults, mesh
         self._fns = self.sim.episode_fns(per_tti_fading=per_tti_fading,
                                          radio_mode=radio_mode,
                                          telemetry=self.telemetry,
-                                         churn=churn, faults=faults)
+                                         churn=churn, faults=faults,
+                                         mesh=mesh, ue_axis=ue_axis)
         self._static = self.sim.episode_static()
         self._radio_static = self.sim.radio_static()
         # the reset template: PF EWMA seeded at the stationary alpha-fair
@@ -363,10 +367,19 @@ class CrrmEnv:
         return (state,) + out[1:]
 
     # ------------------------------------------------------------- batched
+    def _no_mesh(self):
+        if self.mesh is not None:
+            raise ValueError(
+                "batched env surfaces (reset_batch/step_batch/"
+                "step_autoreset_batch) are unsupported under mesh=: the "
+                "UE-sharded program already spans the ranks; batch over "
+                "seeds OR shard over UEs, not both")
+
     def reset_batch(self, seeds):
         """B episodes from B seeds: ``(states, EnvObs)`` with every leaf
         leading with B -- the stack of ``reset(seed_b)``.  With
         ``resample_topology`` each seed owns its UE field."""
+        self._no_mesh()
         outs = [self.reset(int(s)) for s in _seeds(seeds)]
         return _stack([o[0] for o in outs]), _stack([o[1] for o in outs])
 
@@ -376,6 +389,7 @@ class CrrmEnv:
         env b.  Each env's radio side runs on its own draws; the MAC runs
         batched.  Returns ``(states, EnvObs, reward (B,), done (B,)[,
         info])``."""
+        self._no_mesh()
         if self.resample_topology:
             ep, static = states.ep, states.static
         else:

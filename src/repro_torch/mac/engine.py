@@ -23,8 +23,19 @@ counter and ``Draws``.  Churn and faults draw from lineages of their own,
 so turning them on leaves the mobility, fading, traffic and HARQ draws
 bit-identical.  ``relax=`` (a ``radio.RelaxConfig``) softens the
 recomputed chain for ``torch.autograd``: single device, dense radio, no
-churn and no faults.  Mesh sharding waits for a later slice and raises
-``NotImplementedError``.
+churn and no faults.
+
+Mesh sharding (``mesh=``, a ``core.distributed.Mesh``): every rank is
+called with the global inputs, runs the TTIs on its own block of UE rows
+(the ``ue_axis`` mesh axes) and, with ``cell_axis``, of cells, and returns
+the global outputs.  Every per-UE draw is taken at global shape and
+sliced, so rank s consumes exactly the rows it owns on one device; the
+scheduler's per-cell reductions, the cell-sharded chain and the
+telemetry reduce over the mesh with all-reduces.  Against one device:
+bitwise for rr and max_cqi, and for attachment, serving cell and
+positions; within 1e-5 for pf's floats, whose cross-shard sum reorders a
+float reduction (under bursty traffic an ulp residue can flip a
+backlog-active mask, so pf is held at full buffer).
 """
 from __future__ import annotations
 
@@ -32,7 +43,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch import not_in_slice
+from repro_torch.core import distributed as mesh_ops
 from repro_torch.mac import scheduler as mac_sched
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.sim import deploy, mobility, radio
@@ -228,16 +239,25 @@ def harq_fail_prob(bler, comb_gain_db, retx):
                        0.0, 1.0)
 
 
-def a3_handover(a, ttt, rsrp_wb, hyst_db, ttt_tti):
+def a3_handover(a, ttt, rsrp_wb, hyst_db, ttt_tti, cell_axis=None):
     """One TTI of the A3 trigger: (serving, time-to-trigger) -> updated.
 
     A3 enters when the best neighbour's wideband RSRP exceeds the serving
     cell's by ``hyst_db``; after ``ttt_tti`` consecutive TTIs the UE hands
-    over.  Leaving the condition resets the counter.
+    over.  Leaving the condition resets the counter.  Cell-sharded
+    (``cell_axis``), the serving value is the owning shard's and the best
+    neighbour the cross-shard argmax: the decisions are the single-device
+    ones, bit for bit.
     """
-    serving = torch.gather(rsrp_wb, 1, a.long()[:, None])[:, 0]
-    best = torch.argmax(rsrp_wb, dim=1).to(a.dtype)
-    best_val = rsrp_wb.max(dim=1).values
+    if cell_axis is None:
+        serving = torch.gather(rsrp_wb, 1, a.long()[:, None])[:, 0]
+        best = torch.argmax(rsrp_wb, dim=1).to(a.dtype)
+        best_val = rsrp_wb.max(dim=1).values
+    else:
+        serving = radio.take_cell(rsrp_wb, a, cell_axis)
+        best_val, best, _ = mesh_ops._global_best(
+            rsrp_wb.amax(dim=1), torch.argmax(rsrp_wb, dim=1).to(a.dtype),
+            rsrp_wb.shape[1], cell_axis)
     hyst = 10.0 ** (hyst_db / 10.0)
     entered = (best_val > serving * hyst) & (best != a)
     ttt = torch.where(entered, ttt + 1, 0).to(torch.int32)
@@ -258,16 +278,6 @@ def stationary_served_tput(params, n_cells: int, se, cqi, a, backlog):
     bits = mac_sched.served_bits(alloc, se, backlog,
                                  p.subband_bandwidth_Hz / p.n_rb, p.tti_s)
     return (bits / p.tti_s).sum(dim=1)
-
-
-_LATER = {"mesh": "mesh", "cell_axis": "mesh"}
-
-
-def _reject_later(**kw):
-    """Raise for any feature of a later slice that the caller asked for."""
-    for name, value in kw.items():
-        if value:
-            raise not_in_slice(f"episode_fns({name}=...)", _LATER[name])
 
 
 def scatter_born(dst, idx, fresh, n_born):
@@ -342,8 +352,9 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                      mobility_step_m=None, per_tti_fading: bool = False,
                      use_harq=None, radio_mode: str = "dense",
                      mobility_move_frac=None, inc_backend=None,
-                     mesh=None, cell_axis=None, telemetry: bool = False,
-                     churn=None, relax=None, faults=None) -> EpisodeFns:
+                     mesh=None, ue_axis=("ue",), cell_axis=None,
+                     telemetry: bool = False, churn=None, relax=None,
+                     faults=None) -> EpisodeFns:
     """Build the ``step``/``rollout`` functions for one configuration.
 
     ``traffic_step(gen)`` is the traffic model's arrival draw (``None`` for
@@ -390,6 +401,18 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     with that env's draws at its own TTI -- then the MAC of all B envs at
     once, through the flat-id segment reductions of ``mac.segments``.  The
     fused backend launches once per env and TTI.
+
+    ``mesh`` (a ``core.distributed.Mesh``) shards the UE axis of every
+    per-UE tensor over the ``ue_axis`` mesh axes (``n_ues`` must divide
+    evenly); callers pass global tensors on every rank and get global
+    tensors back.  ``cell_axis`` (requires ``mesh``) also shards the cell
+    dimension of ``C``/``P``/``bore`` and the fading columns: attachment
+    and A3 run through the cross-shard argmax and the serving row is an
+    owning-shard gather, so attachment, serving cell and positions stay
+    bitwise the single-device ones and the floats hold to 1e-5.  The
+    fused kernel takes the dirty rows of a UE-only mesh, against all
+    cells; under ``cell_axis`` it raises.  A mesh runs one env (no batch),
+    without churn and without ``relax``.
     """
     churn_on = churn is not None
     faults_on = faults is not None
@@ -423,7 +446,43 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 "carries hard argmax attachment in its RadioState and "
                 "patches rows in place (and the fused kernel has no "
                 "backward); pass radio_mode='dense' when differentiating")
-    _reject_later(mesh=mesh, cell_axis=cell_axis)
+    # -- mesh layout (None: one device) ------------------------------------
+    if mesh is not None:
+        if not isinstance(mesh, mesh_ops.Mesh):
+            raise TypeError(f"mesh= must be a repro_torch.core.distributed."
+                            f"Mesh; got {type(mesh).__name__}")
+        ue_ax = mesh.axes(ue_axis)
+        if n_ues % ue_ax.size:
+            raise ValueError(
+                f"n_ues={n_ues} must divide evenly over the {ue_ax.size} "
+                f"shards of mesh axes {ue_ax.names}")
+    else:
+        ue_ax = None
+        if cell_axis is not None:
+            raise ValueError("cell_axis= requires mesh= (the cell dimension "
+                             "shards over named mesh axes)")
+    cell_ax = None if cell_axis is None else mesh.axes(cell_axis)
+    if cell_ax is not None and set(cell_ax.names) & set(ue_ax.names):
+        raise ValueError(f"ue_axis {ue_ax.names} and cell_axis "
+                         f"{cell_ax.names} must name different mesh axes")
+    if cell_ax is not None and n_cells % cell_ax.size:
+        raise ValueError(
+            f"n_cells={n_cells} must divide evenly over the {cell_ax.size} "
+            f"shards of mesh axes {cell_ax.names}")
+    n_loc = n_ues if ue_ax is None else n_ues // ue_ax.size
+    m_loc = n_cells if cell_ax is None else n_cells // cell_ax.size
+    row0 = 0 if ue_ax is None else ue_ax.index * n_loc   # first global row
+    col0 = 0 if cell_ax is None else cell_ax.index * m_loc
+
+    def local_rows(x):
+        """This rank's block of a global-UE-axis tensor (every per-UE draw
+        is taken at global shape, then sliced)."""
+        return x if ue_ax is None else x[row0:row0 + n_loc]
+
+    def local_cols(x, axis=1):
+        """This rank's block of a global-cell-axis tensor."""
+        return x if cell_ax is None else x.narrow(axis, col0, m_loc)
+
     p = params
     cfg = radio_cfg
     tti_s, beta = p.tti_s, p.pf_ewma
@@ -469,6 +528,10 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             reason = ("cell fault transitions re-derive per-UE outputs "
                       "from carried gain matrices (G) the streaming "
                       "kernel never materialises")
+        elif cell_ax is not None:
+            reason = ("the fused kernel's attachment argmax spans all "
+                      "cells, but a cell-sharded shard holds only its "
+                      "cell block")
         else:
             reason = radio.fused_unsupported_reason(cfg)
         if inc_backend == "fused" and reason is not None:
@@ -491,20 +554,21 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     def init_rs(static, U, action, fad=None, pmul=None):
         P = static.P if action is None else action
         if pmul is not None:
-            P = P * pmul[:, None]
+            P = P * local_cols(pmul, axis=0)[:, None]
         f = fad if fad is not None else inc_fad(static)
         return radio.radio_init(cfg, U, static.C, static.bore, f, P,
-                                with_tables=ho_on, with_gain=faults_on)
+                                with_tables=ho_on, with_gain=faults_on,
+                                cell_axis=cell_ax)
 
     def walk_displacements(draws, t, U):
         """This TTI's per-row displacement + the window start (or None when
         every UE walks)."""
         if frac_on:
             start, d = draws.window(t, n_ues, n_move, mobility_step_m)
-            rows = torch.arange(n_ues, device=U.device)
+            rows = torch.arange(row0, row0 + n_loc, device=U.device)
             d_all, _ = mobility.window_displacements(start, d, rows, n_ues)
             return d_all, start
-        return draws.walk(t, n_ues, mobility_step_m), None
+        return local_rows(draws.walk(t, n_ues, mobility_step_m)), None
 
     def inc_channel(static, rs, U, P, draws, t, fad, born_idx, n_born):
         """One incremental TTI of the radio chain: move, patch, read.
@@ -518,20 +582,27 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             d, start = walk_displacements(draws, t, U)
             U = mobility.apply_walk(U, d, p.extent_m)
             if start is None:
-                parts.append(torch.arange(n_ues, dtype=torch.int32,
+                parts.append(torch.arange(n_loc, dtype=torch.int32,
                                           device=U.device))
-                n_dirty = n_ues
+                n_dirty = n_loc
             else:
-                idx, n_dirty = radio.window_indices(start, n_move, n_ues)
+                # rows of the window outside this rank's block pad with
+                # local row 0 (an idempotent recompute)
+                idx, n_dirty = radio.window_indices(
+                    start, n_move, n_ues, offset=row0, n_loc=n_loc)
                 parts.append(idx)
         if born_idx is not None:
             parts.append(born_idx)
             n_dirty = n_dirty + n_born
         if parts:
             idx = parts[0] if len(parts) == 1 else torch.cat(parts)
-            update = (radio.radio_update_rows_fused if inc_fused
-                      else radio.radio_update_rows)
-            rs = update(cfg, rs, U, static.C, static.bore, fad, P, idx)
+            if inc_fused:
+                rs = radio.radio_update_rows_fused(
+                    cfg, rs, U, static.C, static.bore, fad, P, idx)
+            else:
+                rs = radio.radio_update_rows(cfg, rs, U, static.C,
+                                             static.bore, fad, P, idx,
+                                             cell_axis=cell_ax)
         return U, rs, n_dirty
 
     def sinr_chain(R, a, meas):
@@ -543,12 +614,19 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             gamma = radio.soft_attach_sinr(R, meas, relax.attach_tau,
                                            noise_w)
         else:
-            gamma, _, _ = radio.sinr(R, a, noise_w)
+            gamma, _, _ = radio.sinr(R, a, noise_w, cell_ax)
         se, cqi = radio.se_chain_relaxed(cfg, gamma, relax)
         return se, cqi, a
 
     def gather_serving(se_all, cqi_all, a):
-        return radio.take_cell(se_all, a), radio.take_cell(cqi_all, a)
+        return (radio.take_cell(se_all, a, cell_ax),
+                radio.take_cell(cqi_all, a, cell_ax))
+
+    def attach(R_like):
+        return radio.attachment(R_like, cell_ax)
+
+    def a3_step(a, ttt, meas_wb):
+        return a3_handover(a, ttt, meas_wb, hyst_db, ttt_tti, cell_ax)
 
     def allocate(se, cqi, a, buf, avg, cursor, harq_pending, act, fair):
         demand = (buf[..., None] > 0.0) | harq_pending[..., None]
@@ -563,7 +641,7 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                                                    rb_chunk, relax.sched_tau)
         log_w = mac_sched.pf_log_weights_ewma(rb_bw * se, avg[..., None], fp)
         return mac_sched.allocate(policy, active, cqi, a, n_cells, rb_chunk,
-                                  cursor, log_w)
+                                  cursor, log_w, ue_ax)
 
     def harq_step(u, tb_new, hbits, hretx, granted):
         """One TTI of every UE's stop-and-wait process on the TTI's HARQ
@@ -606,7 +684,7 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             if not power_act and not faults_on:
                 R_mean = radio.rsrp(h["G"], static.P)
                 h["R_mean"] = R_mean
-                h["a"] = radio.attachment(R_mean) if attach_on_mean else None
+                h["a"] = attach(R_mean) if attach_on_mean else None
                 R_faded = radio.rsrp(radio.apply_fading(h["G"], static.fad),
                                      static.P)
                 h["meas_wb"] = (R_mean if attach_on_mean
@@ -614,11 +692,16 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 if ho_on:
                     # static channel + evolving serving cell: tabulate the
                     # SINR chain for every candidate cell once
-                    total = R_faded.sum(dim=1)
+                    total = radio.cell_total(R_faded, cell_ax)
                     gamma_all = R_faded / (
                         noise_w + (total[:, None, :] - R_faded))
                     h["se_all"], h["cqi_all"] = radio.se_chain(cfg, gamma_all)
         return h
+
+    def draw_fading(draws, t):
+        """The TTI's fresh fading, drawn at global shape, then this rank's
+        row and column block."""
+        return local_cols(local_rows(draws.fading(t, cfg, n_ues, n_cells)))
 
     def channel(h, static, state, action, rs, draws, t: int):
         """One env's radio side of a TTI: churn, faults, mobility, the
@@ -663,7 +746,8 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         if faults_on:
             cs, changed = sim_faults.fault_step(
                 draws.fault_uniform(t, n_cells), cs, tti_s, faults)
-            P = P * sim_faults.tx_multiplier(cs, faults)[:, None]
+            P = P * local_cols(sim_faults.tx_multiplier(cs, faults),
+                               axis=0)[:, None]
         # -- channel: incremental state, per-TTI recompute, or constants ---
         r = rs if rs is not None else h.get("rs")
         if r is not None:
@@ -674,14 +758,15 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 if faults_on:
                     # a transition re-prices every UE against the masked P
                     # from the carried gains (selected on any(changed))
-                    r = radio.radio_update_cells(cfg, r, P, changed)
+                    r = radio.radio_update_cells(cfg, r, P, changed,
+                                                 cell_axis=cell_ax)
                 rs = r
             if ho_on:
                 if churn_on:
                     # newborns attach instantly to their best cell
                     a_srv = torch.where(born, torch.argmax(r.meas, dim=1).to(
                         a_srv.dtype), a_srv)
-                a_srv, ttt = a3_handover(a_srv, ttt, r.meas, hyst_db, ttt_tti)
+                a_srv, ttt = a3_step(a_srv, ttt, r.meas)
                 a_use = a_srv
                 se, cqi = gather_serving(r.se_all, r.cqi_all, a_use)
             else:
@@ -693,23 +778,22 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 d, _ = walk_displacements(draws, t, U)
                 U = mobility.apply_walk(U, d, p.extent_m)
             G0 = radio.pathgains(cfg, U, static.C, static.bore)
-            fad = (draws.fading(t, cfg, n_ues, n_cells) if per_tti_fading
+            fad = (draw_fading(draws, t) if per_tti_fading
                    else (fad_c if fad_carried else static.fad))
             R = radio.rsrp(radio.apply_fading(G0, fad), P)
             R_meas = radio.rsrp(G0, P) if attach_on_mean else R
-            a_inst = radio.attachment(R_meas)
+            a_inst = attach(R_meas)
         elif per_tti_fading or power_act or faults_on:
-            fad = (draws.fading(t, cfg, n_ues, n_cells) if per_tti_fading
-                   else static.fad)
+            fad = draw_fading(draws, t) if per_tti_fading else static.fad
             R = radio.rsrp(radio.apply_fading(h["G"], fad), P)
             if power_act or faults_on:
                 # the action / fault mask changes P: measurement and
                 # attachment recompute from the hoisted gain
                 R_meas = radio.rsrp(h["G"], P) if attach_on_mean else R
-                a_inst = radio.attachment(R_meas)
+                a_inst = attach(R_meas)
             else:
                 R_meas = h["R_mean"] if attach_on_mean else R
-                a_inst = h["a"] if attach_on_mean else radio.attachment(R)
+                a_inst = h["a"] if attach_on_mean else attach(R)
         else:
             R = R_meas = a_inst = None   # fully static radio chain
 
@@ -721,8 +805,7 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                 if churn_on:
                     a_srv = torch.where(born, torch.argmax(meas_wb, dim=1).to(
                         a_srv.dtype), a_srv)
-                a_srv, ttt = a3_handover(a_srv, ttt, meas_wb, hyst_db,
-                                         ttt_tti)
+                a_srv, ttt = a3_step(a_srv, ttt, meas_wb)
                 a_use = a_srv
                 if R is not None:
                     se, cqi, _ = sinr_chain(R, a_use, meas=meas_wb)
@@ -750,7 +833,8 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         buf, avg = state.backlog, state.pf_avg
         hbits, hretx, act = state.harq_bits, state.harq_retx, state.active
         if traffic_step is not None:
-            arrivals = draw(lambda d, t: d.traffic(t, traffic_step))
+            arrivals = local_rows(draw(lambda d, t: d.traffic(t,
+                                                              traffic_step)))
             if churn_on:
                 arrivals = torch.where(act, arrivals, 0.0)
             buf = buf + arrivals
@@ -764,11 +848,12 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             floor=1e-6 if relax is not None else 1e-30).sum(dim=-1)
         hstats = None
         if harq_on:
-            u = draw(lambda d, t: d.harq_uniform(t, n_ues))
+            u = local_rows(draw(lambda d, t: d.harq_uniform(t, n_ues)))
             bits, hbits, hretx, hstats = harq_step(
                 u, tb_new, hbits, hretx, alloc.sum(dim=-1) > 0.0)
         elif bler > 0.0:   # HARQ-lite: lost blocks stay queued -> retx
-            ok = draw(lambda d, t: d.harq_bernoulli(t, 1.0 - bler, n_ues))
+            ok = local_rows(draw(lambda d, t: d.harq_bernoulli(t, 1.0 - bler,
+                                                               n_ues)))
             bits = tb_new * ok.to(tb_new.dtype)
         else:
             bits = tb_new
@@ -807,7 +892,8 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                                  device=buf.device)
         return obs_telemetry.tti_telemetry(
             n_cells, n_ues, a_use, alloc, bits, tput, buf, hstats, ho_fired,
-            n_dirty, active_count=count(state.active) if churn_on else None,
+            n_dirty, ue_ax,
+            active_count=count(state.active) if churn_on else None,
             cells_down=(count(state.cell_state == sim_faults.DOWN)
                         if faults_on else None),
             reattached=count(a_srv != prev_srv) if faults_on else None)
@@ -887,20 +973,70 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         return torch.as_tensor(fairness_p, dtype=torch.float32,
                                device=device)
 
+    def roll(static, state, n_tti, draws, action, fair):
+        """Roll one env ``n_tti`` TTIs: (state, [tput], [telem])."""
+        tputs, telems = [], []
+        h, rs = setup(static, state, action)
+        t0 = int(state.t)              # the one host read, before the loop
+        for t in range(t0, t0 + n_tti):
+            state, tput, rs, telem = tti_step(h, static, state, action, rs,
+                                              draws, t, fair)
+            tputs.append(tput)
+            telems.append(telem)
+        return state, tputs, telems
+
+    if mesh is not None:
+        # which dimensions of each leaf shard over which mesh axes
+        ue_axes = ue_ax.names
+        cell_axes = None if cell_ax is None else cell_ax.names
+        ue = mesh_ops.P(ue_axes)
+        static_specs = EpisodeStatic(
+            se=ue, cqi=ue, a=ue, C=mesh_ops.P(cell_axes),
+            P=mesh_ops.P(cell_axes), bore=mesh_ops.P(cell_axes),
+            fad=mesh_ops.P(ue_axes, cell_axes))
+        state_specs = EpisodeState(
+            U=ue, backlog=ue, pf_avg=ue, rr_cursor=mesh_ops.P(),
+            harq_bits=ue, harq_retx=ue, serving=ue, ttt=ue,
+            t=mesh_ops.P(), seed=mesh_ops.P(),
+            cell_state=mesh_ops.P(None) if faults_on else None)
+
+    def run_mesh(static, state, n_tti, draws, action, fair):
+        """:func:`roll` on this rank's block of the global inputs; the
+        outputs reassembled to global ones on every rank."""
+        if state.t.dim():
+            raise ValueError(
+                "a mesh runs one env: its UE-sharded program already spans "
+                "the ranks; batch over seeds or shard over UEs, not both")
+        if state.backlog.device.type != mesh.device.type:
+            raise ValueError(f"the mesh computes on {mesh.device}; the "
+                             f"state is on {state.backlog.device}")
+        block = lambda tup, specs: type(tup)(*(
+            x if x is None or sp is None else mesh.block(x, sp)
+            for x, sp in zip(tup, specs)))
+        if action is not None:
+            action = local_cols(action, axis=0).contiguous()
+        state, tputs, telems = roll(block(static, static_specs),
+                                    block(state, state_specs), n_tti, draws,
+                                    action, fair)
+        # the replicated slots: every rank must have counted alike
+        mesh_ops.check_replicated(
+            (state.rr_cursor, state.t, state.seed, state.cell_state), mesh,
+            "episode state")
+        state = type(state)(*(x if x is None or sp is None
+                              else mesh.unblock(x, sp)
+                              for x, sp in zip(state, state_specs)))
+        tput = mesh.unblock(torch.stack(tputs), mesh_ops.P(None, ue_axes))
+        return state, list(tput.unbind(0)), telems
+
     def run(static, state, n_tti, draws, action, fairness_p):
         """Roll ``n_tti`` TTIs: (state, [tput], [telem]) per TTI."""
         state = start(state)
         fair = fairness(fairness_p, state.backlog.device)
-        tputs, telems = [], []
+        if mesh is not None:
+            return run_mesh(static, state, n_tti, draws, action, fair)
         if state.t.dim() == 0:
-            h, rs = setup(static, state, action)
-            t0 = int(state.t)          # the one host read, before the loop
-            for t in range(t0, t0 + n_tti):
-                state, tput, rs, telem = tti_step(h, static, state, action,
-                                                  rs, draws, t, fair)
-                tputs.append(tput)
-                telems.append(telem)
-            return state, tputs, telems
+            return roll(static, state, n_tti, draws, action, fair)
+        tputs, telems = [], []
         n_env = state.t.shape[0]
         if len(draws) != n_env:
             raise ValueError(f"a batch of {n_env} envs needs {n_env} draws; "
@@ -938,9 +1074,10 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
 
 
 def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
-                    use_harq=None, radio_mode=None, mobility_move_frac=None,
+                    use_harq=None, mesh=None, ue_axis=("ue",),
+                    cell_axis=None, radio_mode=None, mobility_move_frac=None,
                     inc_backend=None, telemetry: bool = False, churn=None,
-                    relax=None, faults=None, **later) -> EpisodeFns:
+                    relax=None, faults=None) -> EpisodeFns:
     """The :func:`make_episode_fns` bundle for ``sim``, cached on it.
 
     ``mobility_step_m=None`` falls back to ``params.mobility_step_m``
@@ -960,37 +1097,42 @@ def episode_fns_for(sim, *, mobility_step_m=None, per_tti_fading=False,
         faults = sim.params.faults
     if not faults:                   # 0 / False -> fault-free program
         faults = None
-    cache_key = (mobility_step_m, per_tti_fading, use_harq, radio_mode,
-                 mobility_move_frac, inc_backend, bool(telemetry), churn,
-                 relax, faults, tuple(sorted(later.items())))
+    ue_axis = mesh_ops._names(ue_axis)
+    if cell_axis is not None:
+        cell_axis = mesh_ops._names(cell_axis)
+    cache_key = (mobility_step_m, per_tti_fading, use_harq, mesh, ue_axis,
+                 cell_axis, radio_mode, mobility_move_frac, inc_backend,
+                 bool(telemetry), churn, relax, faults)
     cache = sim.__dict__.setdefault("_episode_fns_cache", {})
     if cache_key not in cache:
         cache[cache_key] = make_episode_fns(
             sim.params, sim.n_ues, sim.n_cells, sim.radio_config(),
             sim._traffic_step, mobility_step_m=mobility_step_m,
-            per_tti_fading=per_tti_fading, use_harq=use_harq,
-            radio_mode=radio_mode, mobility_move_frac=mobility_move_frac,
-            inc_backend=inc_backend, telemetry=bool(telemetry), churn=churn,
-            relax=relax, faults=faults, **later)
+            per_tti_fading=per_tti_fading, use_harq=use_harq, mesh=mesh,
+            ue_axis=ue_axis, cell_axis=cell_axis, radio_mode=radio_mode,
+            mobility_move_frac=mobility_move_frac, inc_backend=inc_backend,
+            telemetry=bool(telemetry), churn=churn, relax=relax,
+            faults=faults)
     return cache[cache_key]
 
 
 def run_episode(sim, n_tti: int, draws=None, mobility_step_m=None,
                 per_tti_fading: bool = False, sync_state: bool = True,
-                use_harq=None, radio_mode=None, mobility_move_frac=None,
-                inc_backend=None, telemetry: bool = False, churn=None,
-                faults=None, **later):
+                use_harq=None, mesh=None, radio_mode=None,
+                mobility_move_frac=None, inc_backend=None,
+                telemetry: bool = False, churn=None, faults=None):
     """Run ``n_tti`` TTIs; returns (n_tti, n_ues) delivered throughput
     (bits/s), or ``(tput, telem)`` with ``telemetry=True``.  ``draws``
     defaults to ``Draws(params.seed, sim.device)``; ``sync_state`` writes
     the final state back into the graph.  Under ``churn`` the episode
-    starts with every capacity slot live (:func:`seed_churn_state`)."""
+    starts with every capacity slot live (:func:`seed_churn_state`).
+    ``mesh`` runs the rollout sharded over the UE axis (``("ue",)``)."""
     fns = episode_fns_for(sim, mobility_step_m=mobility_step_m,
                           per_tti_fading=per_tti_fading, use_harq=use_harq,
-                          radio_mode=radio_mode,
+                          mesh=mesh, radio_mode=radio_mode,
                           mobility_move_frac=mobility_move_frac,
                           inc_backend=inc_backend, telemetry=telemetry,
-                          churn=churn, faults=faults, **later)
+                          churn=churn, faults=faults)
     if draws is None:
         draws = Draws(sim.params.seed, sim.device)
     static, state = sim.episode_static(), sim.init_episode_state()

@@ -16,14 +16,20 @@ Every policy also takes a batch of envs: ``(B, n_ue, K)`` masks with
 the flat-id segment reductions of ``mac.segments``.  The differentiable
 engine (``radio.RelaxConfig``) takes the soft max_cqi,
 :func:`allocate_max_cqi_soft`, and differentiates through the others as
-they are.  Mesh sharding (``ue_axis``) waits for a later slice of the
-port.
+they are.
+
+Under a mesh the UE rows of one env are sharded and ``ue_axis`` (a
+``core.distributed.Axes``) names the axes: a UE's within-cell rank adds
+the active counts of the lower shards, the per-cell winner is the
+cross-shard argmax, and the PF stabiliser and weight sums reduce over the
+shards.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as mesh_ops
 from repro_torch.mac import segments
 
 SCHEDULER_POLICIES = ("rr", "max_cqi", "pf")
@@ -47,11 +53,15 @@ def _cell_mask(active, a, n_cells):
     return active[..., :, None, :] & onehot[..., None]
 
 
-def allocate_rr(active, a, n_cells, n_rb, cursor):
+def allocate_rr(active, a, n_cells, n_rb, cursor, ue_axis=None):
     """Round-robin: even integer split, remainder rotated by ``cursor``.
 
     A UE's within-cell rank comes from one stable sort by cell plus prefix
-    sums; the stable sort keeps each cell's UEs in index order.
+    sums; the stable sort keeps each cell's UEs in index order.  Sharded
+    (``ue_axis``), the global UE order is shard-major, so the rank adds the
+    active counts of the lower shards: every shard writes its counts into
+    its own slot of a zero-filled (n_shards, n_cells, K) buffer, and one
+    all-reduce SUM, exact for integers, gathers them.
     """
     a = a.long()
     act_i = active.to(torch.int32)                     # (..., n_ue, K)
@@ -63,6 +73,13 @@ def allocate_rr(active, a, n_cells, n_rb, cursor):
     offs = torch.cumsum(counts, dim=-2, dtype=torch.int32) - counts
     rank_sorted = csum - 1 - segments.take(offs, torch.gather(a, -1, order))
     rank = torch.empty_like(rank_sorted).scatter_(-2, by_row, rank_sorted)
+    if ue_axis is not None:
+        slots = torch.zeros((ue_axis.size,) + tuple(counts.shape),
+                            dtype=counts.dtype, device=counts.device)
+        slots[ue_axis.index] = counts
+        slots = mesh_ops.psum(slots, ue_axis)
+        rank = rank + segments.take(slots[:ue_axis.index].sum(dim=0), a)
+        counts = slots.sum(dim=0)
     n_act = torch.clamp(segments.take(counts, a), min=1)
     nrb = torch.full_like(n_act, n_rb)
     base = torch.div(nrb, n_act, rounding_mode="floor")
@@ -73,13 +90,22 @@ def allocate_rr(active, a, n_cells, n_rb, cursor):
     return torch.where(active, (base + extra).to(torch.float32), 0.0)
 
 
-def allocate_max_cqi(active, cqi, a, n_cells, n_rb):
-    """Winner-take-all: the best-CQI active UE gets the cell's whole grid."""
+def allocate_max_cqi(active, cqi, a, n_cells, n_rb, ue_axis=None):
+    """Winner-take-all: the best-CQI active UE gets the cell's whole grid.
+    Sharded (``ue_axis``), the winner is the cross-shard argmax, ties to
+    the lowest global UE index as on one device."""
     M = _cell_mask(active, a, n_cells)
     score = torch.where(M, cqi[..., :, None, :], -1)    # (..., n_ue, cells, K)
-    winner = torch.argmax(score, dim=-3)                # first max: lowest UE
+    n = active.shape[-2]
+    i = torch.arange(n, device=active.device)[:, None]
+    if ue_axis is None:
+        winner = torch.argmax(score, dim=-3)            # first max: lowest UE
+    else:
+        _, winner, _ = mesh_ops._global_best(
+            score.amax(dim=-3), torch.argmax(score, dim=-3).to(torch.int32),
+            n, ue_axis)
+        i = i + ue_axis.index * n
     mine = segments.take(winner, a)                     # (..., n_ue, K)
-    i = torch.arange(active.shape[-2], device=active.device)[:, None]
     return torch.where(active & (mine == i), float(n_rb), 0.0)
 
 
@@ -94,32 +120,41 @@ def allocate_max_cqi_soft(active, se, a, n_cells, n_rb, tau):
     return n_rb * _softmax_share(active, se / tau, a, n_cells)
 
 
-def _softmax_share(active, log_w, a, n_cells):
+def _softmax_share(active, log_w, a, n_cells, ue_axis=None):
     """Each active UE's share of its cell, ``softmax(log_w)`` over the
     cell's active UEs (0 for idle UEs and empty cells)."""
     log_w = torch.where(active, log_w, _NEG)
     cell_max = segments.segment_max(log_w, a, n_cells, fill=_NEG)
+    if ue_axis is not None:
+        cell_max = mesh_ops.pmax(cell_max, ue_axis)
     w = torch.exp(log_w - segments.take(cell_max, a))   # in (0, 1], 0 if idle
     w = torch.where(active, w, 0.0)
-    denom = segments.take(segments.segment_sum(w, a, n_cells), a)
+    denom = segments.segment_sum(w, a, n_cells)
+    if ue_axis is not None:
+        denom = mesh_ops.psum(denom, ue_axis)
+    denom = segments.take(denom, a)
     return torch.where(denom > 0.0,
                        w / torch.clamp(denom, min=_DENOM_FLOOR), 0.0)
 
 
-def allocate_pf(active, log_w, a, n_cells, n_rb):
-    """Weight-proportional split of the grid (log-space for stability)."""
-    return n_rb * _softmax_share(active, log_w, a, n_cells)
+def allocate_pf(active, log_w, a, n_cells, n_rb, ue_axis=None):
+    """Weight-proportional split of the grid (log-space for stability);
+    sharded (``ue_axis``), the per-cell maximum and sum reduce over the
+    shards."""
+    return n_rb * _softmax_share(active, log_w, a, n_cells, ue_axis)
 
 
-def allocate(policy, active, cqi, a, n_cells, n_rb, cursor, log_w):
+def allocate(policy, active, cqi, a, n_cells, n_rb, cursor, log_w,
+             ue_axis=None):
     """Dispatch to a policy; single entry point for graph node and engine.
-    ``log_w`` carries the PF weights; the other policies ignore it."""
+    ``log_w`` carries the PF weights; the other policies ignore it.
+    ``ue_axis`` names the mesh axes the UE rows are sharded over."""
     if policy == "rr":
-        return allocate_rr(active, a, n_cells, n_rb, cursor)
+        return allocate_rr(active, a, n_cells, n_rb, cursor, ue_axis)
     if policy == "max_cqi":
-        return allocate_max_cqi(active, cqi, a, n_cells, n_rb)
+        return allocate_max_cqi(active, cqi, a, n_cells, n_rb, ue_axis)
     if policy == "pf":
-        return allocate_pf(active, log_w, a, n_cells, n_rb)
+        return allocate_pf(active, log_w, a, n_cells, n_rb, ue_axis)
     raise ValueError(
         f"unknown scheduler policy {policy!r}; choose from "
         f"{SCHEDULER_POLICIES}")

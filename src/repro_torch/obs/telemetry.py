@@ -12,8 +12,9 @@ Optional leaves are ``None`` where a regime cannot produce them:
 only under churn (the UE axis is then capacity-padded, and Jain's index
 counts the live population), ``cells_down`` and ``reattach_events`` only
 under faults.  A batch of envs gives every leaf a leading B axis (the
-per-cell sums go through the flat-id segment reductions).  The mesh
-reductions (``ue_axes``) wait for the mesh slice.
+per-cell sums go through the flat-id segment reductions).  Under a mesh
+(``ue_axes``) every per-UE reduction is summed over the UE shards, so each
+rank holds the global KPIs.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import not_in_slice
+from repro_torch.core import distributed as mesh_ops
 from repro_torch.mac import segments
 
 
@@ -60,9 +61,13 @@ def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
     live population ``active_count`` under churn.  ``cells_down`` and
     ``reattached`` are the fault process's counts, published as given.
     Every input may lead with a batch axis.
+
+    ``ue_axes`` (a ``core.distributed.Axes``) names the mesh axes the UE
+    rows are sharded over: every per-UE sum is then summed over the shards
+    (floats in one all-reduce, counts in another), so each rank holds the
+    global KPI.  ``cells_down`` comes from the replicated fault state and
+    is published as given; ``reattached`` is a per-UE count and is summed.
     """
-    if ue_axes is not None:
-        raise not_in_slice("tti_telemetry(ue_axes=...)", "mesh")
     acks, nacks, retx, dropped = harq_stats
     served = segments.segment_sum(bits.to(torch.float32), a, n_cells)
     granted = segments.segment_sum(alloc.sum(dim=-1).to(torch.float32), a,
@@ -71,6 +76,12 @@ def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
                             0.0).sum(dim=-1)
     s = tput.sum(dim=-1)
     ss = (tput * tput).sum(dim=-1)
+    if ue_axes is not None:
+        served, granted, occupancy, s, ss, dropped = _psum_all(
+            (served, granted, occupancy, s, ss, dropped), ue_axes)
+        acks, nacks, retx, ho_events, n_dirty, active_count, reattached = (
+            _psum_all((acks, nacks, retx, ho_events, n_dirty, active_count,
+                       reattached), ue_axes))
     denom = (n_ues if active_count is None
              else torch.clamp(active_count, min=1))
     jain = torch.where(ss > 0.0, s * s / (denom * ss), 0.0)
@@ -80,6 +91,21 @@ def tti_telemetry(n_cells: int, n_ues: int, a, alloc, bits, tput, backlog,
                      buffer_bits=occupancy, jain=jain, dirty_rows=n_dirty,
                      active_ues=active_count, cells_down=cells_down,
                      reattach_events=reattached)
+
+
+def _psum_all(xs, ue_axes):
+    """Each tensor of ``xs`` (``None`` skipped) summed over ``ue_axes`` in
+    one all-reduce of their concatenation (one dtype)."""
+    live = [x for x in xs if x is not None]
+    flat = mesh_ops.psum(torch.cat([x.reshape(-1) for x in live]), ue_axes)
+    out, at = [], 0
+    for x in xs:
+        if x is None:
+            out.append(None)
+            continue
+        out.append(flat[at:at + x.numel()].reshape(x.shape))
+        at += x.numel()
+    return out
 
 
 def stack(telems, dim: int = 0) -> Telemetry:

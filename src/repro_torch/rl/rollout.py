@@ -10,7 +10,9 @@ previous window's KPIs.
 
 The env must be built with ``telemetry=True`` (the per-cell reward
 components are the policy's features) and ``resample_topology=False``
-(the auto-reset contract).
+(the auto-reset contract).  An env on a mesh (``CrrmEnv(mesh=)``) is
+collected unbatched only: ``n_envs == 1``, its one stream stepped through
+``step_autoreset`` (the sharded program already spans the ranks).
 
 Randomness: the reference splits a PRNG key per step; here every draw of
 a collection step -- the action noise and the reset seeds of the
@@ -24,6 +26,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.env.crrm_env import EnvObs
 from repro_torch.mac.engine import _M64, _splitmix64
 from repro_torch.rl import policy as pol
 
@@ -112,7 +115,9 @@ def make_collect_fn(env, cfg: pol.PolicyConfig, n_steps: int):
     ``last_value`` the critic's bootstrap at the post-rollout features.
     Pair it with ``env.reset_batch`` and :func:`initial_features` for the
     first call, then thread the returned carry (collection is one stream
-    across iterations, as PPO has it).  Runs without autograd.
+    across iterations, as PPO has it).  Runs without autograd.  On a mesh
+    env ``env_states`` is one unbatched state (``env.reset``) and
+    ``feats`` is (1, feature_dim).
     """
     if not env.telemetry:
         raise ValueError("rollout collection needs CrrmEnv(telemetry="
@@ -128,15 +133,33 @@ def make_collect_fn(env, cfg: pol.PolicyConfig, n_steps: int):
     feat0 = pol.features(cfg, obs0)
     n_act = pol.action_dim(cfg)
 
+    def mesh_step(state, power, seeds, fair):
+        """The one stream of a mesh env, with its outputs given a batch
+        axis of 1."""
+        state, obs, reward, done, info = env.step_autoreset(
+            state, power[0], seeds[0], None if fair is None else fair[0])
+        info = {"telemetry": type(info["telemetry"])(*(
+                    None if x is None else x[None]
+                    for x in info["telemetry"])),
+                "reward_components": {k: v[None] for k, v in
+                                      info["reward_components"].items()}}
+        return (state, EnvObs(obs.tput[None], obs.backlog[None]),
+                reward[None], done[None], info)
+
     @torch.no_grad()
     def collect(params, env_states, feats, draws, iteration: int):
         n_envs = feats.shape[0]
+        if env.mesh is not None and n_envs != 1:
+            raise ValueError(
+                f"a mesh env is collected unbatched only (n_envs == 1); "
+                f"got {n_envs} streams")
+        step_fn = env.step_autoreset_batch if env.mesh is None else mesh_step
         outs = []
         for step in range(n_steps):
             noise = draws.action_noise(iteration, step, (n_envs, n_act))
             u, power, fair, logp, value = pol.sample_action(
                 cfg, params, feats, noise=noise)
-            env_states, obs, reward, done, info = env.step_autoreset_batch(
+            env_states, obs, reward, done, info = step_fn(
                 env_states, power, draws.reset_seeds(iteration, step, n_envs),
                 fair)
             outs.append((feats, u, logp, value, reward, done))

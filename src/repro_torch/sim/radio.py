@@ -32,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as mesh_ops
 from repro_torch.sim import fading as fading_mod
 from repro_torch.sim import phy
 from repro_torch.sim.antenna import Antenna_gain
@@ -147,17 +148,50 @@ def rsrp(G, P):
     return G[:, :, None] * P[None, :, :]
 
 
-def attachment(R):
-    """Serve each UE from the cell with the largest wideband RSRP (the
-    first maximum: lowest cell index wins ties, as ``jnp.argmax``)."""
-    return torch.argmax(R.sum(dim=2), dim=1).to(torch.int32)
+def best_cell(meas, cell_axis=None):
+    """The int32 argmax over the cells of (n_ue, n_cell) measurements (the
+    first maximum: lowest cell index wins ties, as ``jnp.argmax``).  With
+    the cells sharded over ``cell_axis`` (a ``core.distributed.Axes``) the
+    columns are this shard's block and the argmax is the global one, with
+    the same tie-break."""
+    a = torch.argmax(meas, dim=1).to(torch.int32)
+    if cell_axis is None:
+        return a
+    return mesh_ops._global_best(meas.amax(dim=1), a, meas.shape[1],
+                                 cell_axis)[1]
 
 
-def take_cell(X, a):
-    """``X[i, a_i, ...]``: the serving-cell row under attachment ``a``."""
-    sel = a.long().reshape((-1, 1) + (1,) * (X.dim() - 2))
+def attachment(R, cell_axis=None):
+    """Serve each UE from the cell with the largest wideband RSRP."""
+    return best_cell(R.sum(dim=2), cell_axis)
+
+
+def take_cell(X, a, cell_axis=None):
+    """``X[i, a_i, ...]``: the serving-cell row under attachment ``a``.
+
+    Cell-sharded (``cell_axis``), ``a`` is global and ``X`` holds this
+    shard's cell block: the owning shard gathers the row, every other
+    shard adds an exact zero, and one all-reduce SUM gives every shard the
+    single-device row."""
+    if cell_axis is None:
+        col = a.long()
+    else:
+        lo, m_loc = cell_axis.index * X.shape[1], X.shape[1]
+        col = torch.clamp(a.long() - lo, 0, m_loc - 1)
+    sel = col.reshape((-1, 1) + (1,) * (X.dim() - 2))
     sel = sel.expand((X.shape[0], 1) + tuple(X.shape[2:]))
-    return torch.gather(X, 1, sel)[:, 0]
+    rows = torch.gather(X, 1, sel)[:, 0]
+    if cell_axis is None:
+        return rows
+    mine = ((a >= lo) & (a < lo + m_loc)).reshape(
+        (-1,) + (1,) * (rows.dim() - 1))
+    return mesh_ops.psum(torch.where(mine, rows, 0), cell_axis)
+
+
+def cell_total(R, cell_axis=None):
+    """sum_j R[i, j, k]: summed over the cell shards when sharded."""
+    total = R.sum(dim=1)
+    return total if cell_axis is None else mesh_ops.psum(total, cell_axis)
 
 
 def wanted(R, a):
@@ -175,10 +209,12 @@ def sinr_from_wu(w, u, noise_w: float):
     return w / (noise_w + u)
 
 
-def sinr(R, a, noise_w: float):
-    """(gamma, w, u) for serving assignment ``a``."""
-    w = wanted(R, a)
-    u = interference(R, w)
+def sinr(R, a, noise_w: float, cell_axis=None):
+    """(gamma, w, u) for serving assignment ``a`` (cell-sharded: the
+    owning shard's serving row and the interference total summed over the
+    shards, which reorders its float sum)."""
+    w = take_cell(R, a, cell_axis)
+    u = cell_total(R, cell_axis) - w
     return sinr_from_wu(w, u, noise_w), w, u
 
 
@@ -363,11 +399,12 @@ def _chain_rows(cfg: RadioConfig, U_rows, C, bore, fad_rows, P, *,
     """The D->G->RSRP->a->SINR->CQI->SE chain for a slab of UE rows.
 
     Row-local: every output row depends only on its own position/fading
-    row, which is what makes the scatter-patch exact.
+    row, which is what makes the scatter-patch exact.  ``cell_axis`` (a
+    ``core.distributed.Axes``) shards the cells: ``C``/``bore``/``P`` and
+    the fading columns are this shard's block, the attachment is the
+    cross-shard argmax and the interference total is summed over the
+    shards.
     """
-    if cell_axis is not None:
-        from repro_torch import not_in_slice
-        raise not_in_slice("cell-sharded radio rows (cell_axis=)", "mesh")
     G0 = pathgains(cfg, U_rows, C, bore)
     # fad_rows=None: the unfaded channel (G0 * ones is bitwise G0)
     G = G0 if fad_rows is None else apply_fading(G0, fad_rows)
@@ -376,16 +413,16 @@ def _chain_rows(cfg: RadioConfig, U_rows, C, bore, fad_rows, P, *,
         meas = rsrp(G0, P).sum(dim=2)      # long-term association (L3)
     else:
         meas = R.sum(dim=2)
-    a = torch.argmax(meas, dim=1).to(torch.int32)
+    a = best_cell(meas, cell_axis)
     se = cqi = se_all = cqi_all = None
     if with_tables:
         # the serving cell is carried MAC state (A3): tabulate the SINR
         # chain for every candidate cell so a later handover is a gather
-        total = R.sum(dim=1)
+        total = cell_total(R, cell_axis)
         gamma_all = R / (cfg.noise_w + (total[:, None, :] - R))
         se_all, cqi_all = se_chain(cfg, gamma_all)
     else:
-        gamma, _, _ = sinr(R, a, cfg.noise_w)
+        gamma, _, _ = sinr(R, a, cfg.noise_w, cell_axis)
         se, cqi = se_chain(cfg, gamma)
     return RadioState(meas=meas if with_tables else None,
                       a=None if with_tables else a, se=se,
@@ -467,24 +504,23 @@ def radio_update_cells(cfg: RadioConfig, state: RadioState, P,
     """Apply a per-cell power delta from the carried gain matrices
     (``with_gain=True``): every per-UE output recomputes without geometry
     or pathloss, and is selected against the carried one on
-    ``dirty_cell_mask.any()`` (branch-free, no host sync)."""
-    if cell_axis is not None:
-        from repro_torch import not_in_slice
-        raise not_in_slice("cell-sharded cell updates (cell_axis=)", "mesh")
+    ``dirty_cell_mask.any()`` (branch-free, no host sync).  ``cell_axis``
+    shards the cells as in :func:`_chain_rows` (the carried gains and ``P``
+    are this shard's block; ``dirty_cell_mask`` is replicated)."""
     R = rsrp(state.G, P)
     if cfg.rayleigh_fading and cfg.attach_ignores_fading:
         meas = rsrp(state.G0, P).sum(dim=2)
     else:
         meas = R.sum(dim=2)
-    a = torch.argmax(meas, dim=1).to(torch.int32)
+    a = best_cell(meas, cell_axis)
     se = cqi = se_all = cqi_all = None
     if state.se_all is not None:
-        total = R.sum(dim=1)
+        total = cell_total(R, cell_axis)
         gamma_all = R / (cfg.noise_w + (total[:, None, :] - R))
         se_all, cqi_all = se_chain(cfg, gamma_all)
         a = None
     else:
-        gamma, _, _ = sinr(R, a, cfg.noise_w)
+        gamma, _, _ = sinr(R, a, cfg.noise_w, cell_axis)
         se, cqi = se_chain(cfg, gamma)
     new = RadioState(meas=meas, a=a, se=se, cqi=cqi, se_all=se_all,
                      cqi_all=cqi_all, G=state.G, G0=state.G0)

@@ -29,8 +29,10 @@ nesting of dicts, NamedTuples, tuples and lists with tensor leaves
 manifest.  :func:`restore` reads only the target tree's structure, dtypes
 and devices, never its values, and builds fresh tensors on each target
 leaf's device, so restoring over the state of an abandoned computation is
-safe.  Elastic resharding onto a mesh (``shardings=``) waits for the mesh
-slice.
+safe.  Elastic resharding: with ``shardings=`` (a matching tree of
+``core.distributed.NamedSharding``) each rank of a mesh reads and checks
+every file and keeps its own block, whatever mesh wrote the checkpoint; no
+collective is needed.
 """
 from __future__ import annotations
 
@@ -45,9 +47,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_in_slice
+from repro_torch.core.distributed import NamedSharding
 from repro_torch.robust.guard import nan_leaves
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import _children, flatten, unflatten
 
 MANIFEST = "manifest.json"
 
@@ -187,15 +189,19 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
     dtype, shape) and its dtype against the target leaf's; any mismatch or
     unreadable file raises :class:`CheckpointCorrupt`.  A tensor leaf is
     rebuilt on its target leaf's device, any other leaf as a numpy array.
+
+    ``shardings``, a tree of ``core.distributed.NamedSharding`` leaves (or
+    ``None`` for a whole leaf) in ``target_tree``'s structure, restores
+    each tensor leaf as this rank's block of the saved global array under
+    its spec; the target's leaves then describe the global arrays.
     """
-    if shardings is not None:
-        raise not_in_slice("checkpoint.restore(shardings=...)", "mesh")
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = _read_manifest(path, step)
     keys, leaves = flatten(target_tree)
     if keys != manifest["keys"]:
         raise CheckpointCorrupt(
             f"step {step}: checkpoint/model structure mismatch")
+    shards = _shardings(shardings, target_tree)
     out = []
     for i, (key, tgt) in enumerate(zip(keys, leaves)):
         dtype, shape = manifest["dtypes"][i], manifest["shapes"][i]
@@ -219,10 +225,35 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
                 f"step {step}: leaf {key} CRC mismatch (bytes corrupted on "
                 "disk)")
         if isinstance(tgt, torch.Tensor):
-            out.append(torch.from_numpy(arr).to(device=tgt.device))
+            leaf = torch.from_numpy(arr)
+            if shards[i] is not None:
+                leaf = shards[i].mesh.block(leaf, shards[i].spec)
+            out.append(leaf.to(device=tgt.device))
         else:
             out.append(arr)
     return unflatten(target_tree, out), manifest["extra"]
+
+
+def _shardings(shardings, target) -> list:
+    """One ``NamedSharding`` (or ``None``) per leaf of ``target``, in
+    :func:`~repro_torch.tree.flatten`'s order; ``shardings`` has the
+    target's structure (``None`` for a whole subtree)."""
+    if target is None:
+        return []
+    kids = _children(target)
+    if kids is None:                                   # a leaf
+        if shardings is None or isinstance(shardings, NamedSharding):
+            return [shardings]
+    elif shardings is None:
+        return [None] * len(flatten(target)[1])
+    elif not isinstance(shardings, NamedSharding):
+        skids = _children(shardings)
+        if skids is not None and [k for k, _ in skids] == [k for k, _ in kids]:
+            return [s for (_, sh), (_, t) in zip(skids, kids)
+                    for s in _shardings(sh, t)]
+    raise TypeError("shardings= must be a tree of core.distributed."
+                    "NamedSharding (or None) leaves in the target tree's "
+                    "structure")
 
 
 def restore_latest_valid(ckpt_dir: str, target_tree: Any,

@@ -5,9 +5,12 @@ Mirrors the reference's checkpoint cases (tests/test_checkpoint_data.py,
 tests/test_faults.py): round trip, keep-k, atomic writes, ``+inf``
 allowed, NaN refused with the good step kept, CRC corruption, a truncated
 leaf and a structure mismatch raising ``CheckpointCorrupt``,
-``restore_latest_valid`` falling past a corrupt step, and ``save_async``
-equal to ``save``.  The manifest is JSON in the port; for the same leaves
-it records the reference's dtypes, shapes and CRC-32s.
+``restore_latest_valid`` falling past a corrupt step, ``save_async``
+equal to ``save``, and the elastic restore of tests/test_elastic_restore.py
+(an unsharded checkpoint onto a (2, 2) mesh of 4 gloo ranks,
+``tests/torch_mesh.py``, each keeping its own block).  The manifest is JSON
+in the port; for the same leaves it records the reference's dtypes, shapes
+and CRC-32s.
 """
 import json
 import os
@@ -22,6 +25,7 @@ from repro.train import checkpoint as j_ckpt
 from repro_torch.mac.engine import EpisodeState
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.tree import flatten, unflatten
+from torch_mesh import run_ranks
 
 
 def _tree(v):
@@ -168,7 +172,7 @@ def test_restore_reads_structure_not_values(tmp_path):
     _leaves_equal(tree, _serving(1.0))
     for x, y in zip(flatten(tree)[1], flatten(target)[1]):
         assert x.data_ptr() != y.data_ptr()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         ckpt.restore(d, 1, target, shardings=object())
 
 
@@ -270,3 +274,28 @@ def test_numpy_leaves_round_trip(tmp_path):
     assert isinstance(out["a"], np.ndarray)
     np.testing.assert_array_equal(out["a"], np.arange(4))
     assert torch.equal(out["b"], torch.ones(2))
+
+
+# ------------------------------------------------------------ elastic
+def test_checkpoint_restores_onto_larger_mesh(tmp_path):
+    """The reference's elastic case: saved on one device, restored onto a
+    (2, 2) mesh with ``w`` (8, 4) over ("data", "model") and ``b`` (4,)
+    over "model"; each rank reads and checks every file and keeps its own
+    block, through ``restore`` and ``restore_latest_valid``."""
+    d = tmp_path / "ckpt"
+    w = torch.arange(32.0).reshape(8, 4)
+    ckpt.save(str(d), 5, {"w": w, "b": torch.arange(4.0)},
+              extra={"note": "elastic"})
+    (tmp_path / "ranks").mkdir()
+    outs = run_ranks(dict(name="restore", dir=str(d)), 4, tmp_path / "ranks")
+    seen = set()
+    for out in outs:
+        r, c = out["coord"]["data"], out["coord"]["model"]
+        seen.add((r, c))
+        want_w = w.numpy()[4 * r:4 * r + 4, 2 * c:2 * c + 2]
+        want_b = np.arange(4.0, dtype=np.float32)[2 * c:2 * c + 2]
+        for tree in (out["tree"], out["latest"]):
+            np.testing.assert_array_equal(tree["w"], want_w)
+            np.testing.assert_array_equal(tree["b"], want_b)
+        assert out["extra"] == {"note": "elastic"} and out["step"] == 5
+    assert seen == {(0, 0), (0, 1), (1, 0), (1, 1)}

@@ -230,7 +230,7 @@ def test_churn_mesh_raises():
     sim = CRRM(TParams(**BASE), device="cpu")
     with pytest.raises(ValueError, match="churn"):
         sim.episode_fns(churn=T_CHURN, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         sim.episode_fns(mesh=object())
 
 

@@ -623,3 +623,55 @@ def test_ppo_resume_is_bitwise_on_the_card_deterministic(cuda, tmp_path):
     assert hist_b == hist_a[2:]
     for (k, a), b in zip(zip(*flatten(ts_a)), flatten(ts_b)[1]):
         assert a.device.type == "cuda" and torch.equal(a, b), k
+
+
+# ------------------------------------------------------------- the mesh
+MESH_EPISODE = dict(n_ues=20_000, n_cells=19, n_sectors=1, seed=3,
+                    pathloss_model_name="UMa", power_W=10.0,
+                    scheduler_policy="pf", fairness_p=0.5,
+                    mobility_step_m=20.0, mobility_move_frac=0.1,
+                    radio_mode="incremental")
+
+
+def test_one_rank_nccl_mesh_matches_plain_rollout_deterministic(cuda,
+                                                               tmp_path):
+    """The NCCL path as a 1-rank group: the trivial ("ue",) mesh on the
+    card reproduces the plain rollout bit for bit (deterministic mode),
+    with one fused_sinr launch per TTI."""
+    from repro_torch.core.distributed import make_mesh
+    from torch_mesh import one_rank_group
+    sim = CRRM(CRRM_parameters(**MESH_EPISODE))
+    static, state = sim.episode_static(), sim.init_episode_state()
+    with one_rank_group(tmp_path, "nccl"):
+        mesh = make_mesh((1,), ("ue",))
+        outs = []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for m in (None, mesh):
+                fns = sim.episode_fns(mesh=m, inc_backend="fused")
+                before = fk.fused_sinr_accumulate.launches
+                out = fns.rollout(static, state, 5, Draws(3, "cuda"))
+                outs.append((out, fk.fused_sinr_accumulate.launches - before))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    (plain, n_plain), (sharded, n_mesh) = outs
+    assert n_plain == n_mesh == 5
+    assert torch.equal(plain[1], sharded[1])
+    for x, y in zip(plain[0], sharded[0]):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_two_rank_gloo_mesh_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card with CUDA tensors: the incremental
+    episode on a UE mesh of 2 launches fused_sinr once per rank and TTI,
+    keeps positions and serving cells exact and the throughput within
+    1e-5 (max |d| / max(max |tput|, 1)) of one device."""
+    from torch_mesh import run_ranks
+    outs = run_ranks(dict(name="card", params=MESH_EPISODE, n_tti=5,
+                          fns_kw=dict(inc_backend="fused")), 2, tmp_path)
+    for (s1, t1, n1), (s2, t2, n2) in outs:
+        assert n1 == n2 == 5
+        err = np.abs(t2 - t1).max() / max(np.abs(t1).max(), 1.0)
+        assert err <= 1e-5, err
+        np.testing.assert_array_equal(s2.U, s1.U)
+        np.testing.assert_array_equal(s2.serving, s1.serving)

@@ -133,13 +133,14 @@ def test_autoreset_selects_leaf_by_leaf_and_later_slices_raise():
     for a, b in zip(s2, fresh):
         assert (a is None and b is None) or torch.equal(a, b)
     # the batch surfaces run (tests/test_torch_env_batch.py); churn with a
-    # resampled topology is refused as in the reference; mesh waits
+    # resampled topology is refused as in the reference; a mesh must be a
+    # core.distributed.Mesh (tests/test_torch_mesh_env.py)
     states, _ = env.reset_batch(np.arange(2))
     assert env.step_batch(states)[0].t.tolist() == [1, 1]
     with pytest.raises(ValueError, match="resample_topology"):
         TEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=4),
              device="cpu", resample_topology=True, churn=object())
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         TEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=4),
              device="cpu", mesh=object())
     with pytest.raises(ValueError, match="exactly one"):

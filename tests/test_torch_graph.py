@@ -157,10 +157,12 @@ def test_crrm_default_drop_is_seeded_and_in_region():
 
 def test_later_slices_raise_not_implemented():
     sim = TCRRM(TParams(n_ues=8, n_cells=3), device="cpu")
-    # churn, faults and relax are ported
-    # (tests/test_torch_{churn,faults,relax}.py); the mesh waits
-    for kw in (dict(mesh=object()), dict(cell_axis="c")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            sim.episode_fns(**kw)
+    # churn, faults, relax and the mesh are ported
+    # (tests/test_torch_{churn,faults,relax,mesh_engine}.py): a mesh must
+    # be a core.distributed.Mesh, and cell_axis needs one
+    with pytest.raises(TypeError, match="Mesh"):
+        sim.episode_fns(mesh=object())
+    with pytest.raises(ValueError, match="requires mesh"):
+        sim.episode_fns(cell_axis="c")
     from repro_torch.sim.radio import RelaxConfig
     assert sim.episode_fns(relax=RelaxConfig()).rollout is not None

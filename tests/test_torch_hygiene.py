@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``
-and of the fixture loader it reads (``tests/relax_fixture.py``) finds no
-import of ``jax``, ``repro`` or ``msgpack``; a
+An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``,
+of the fixture loader it reads (``tests/relax_fixture.py``) and of the mesh
+ranks' module (``tests/torch_mesh.py``) finds no import of ``jax``,
+``repro`` or ``msgpack``; a
 fresh interpreter that imports every port module has not loaded ``jax``; the
 entry points default to the card and raise without one.
 """
@@ -22,7 +23,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "relax_fixture.py"]
+                                         ROOT / "tests" / "relax_fixture.py",
+                                         ROOT / "tests" / "torch_mesh.py"]
 
 
 def test_the_scan_covers_every_package_of_the_port():
@@ -41,7 +43,7 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.twin.server", "repro_torch.train.optim",
               "repro_torch.rl", "repro_torch.rl.policy",
               "repro_torch.rl.rollout", "repro_torch.rl.ppo",
-              "repro_torch.rl.diffopt"):
+              "repro_torch.rl.diffopt", "repro_torch.core.distributed"):
         assert m in names, m
 
 

@@ -21,9 +21,11 @@ from repro.obs import telemetry as j_tel
 from repro.sim import scenarios as j_scen
 from repro_torch import convert
 from repro_torch.core.crrm import CRRM
+from repro_torch.core.distributed import make_mesh
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.mac.engine import Draws
 from repro_torch.obs import telemetry as t_tel
+from torch_mesh import one_rank_group
 from torch_parity import DEV, check_state, check_telemetry, np_, run_pair
 
 N_TTI = 8
@@ -69,22 +71,29 @@ def test_tti_telemetry_and_summarize_match_reference(seed):
             == j_tel.format_summary(j_tel.summarize(stack_j)))
 
 
-def test_stack_and_later_slice_arguments():
+def test_stack_and_later_slice_arguments(tmp_path):
     args = step_inputs(0)
     targs = [tuple(torch.as_tensor(x) for x in r) if isinstance(r, tuple)
              else torch.as_tensor(r) for r in args[2:]]
     one = t_tel.tti_telemetry(args[0], args[1], *targs)
     st = t_tel.stack([one, one])
     assert st.served_bits.shape == (2, args[0]) and st.active_ues is None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_tel.tti_telemetry(args[0], args[1], *targs, ue_axes=("ue",))
     # the churn and fault counts are published as given (ported)
-    got = t_tel.tti_telemetry(args[0], args[1], *targs,
-                              active_count=torch.tensor(3),
-                              cells_down=torch.tensor(1),
-                              reattached=torch.tensor(2))
+    counts = dict(active_count=torch.tensor(3, dtype=torch.int32),
+                  cells_down=torch.tensor(1, dtype=torch.int32),
+                  reattached=torch.tensor(2, dtype=torch.int32))
+    got = t_tel.tti_telemetry(args[0], args[1], *targs, **counts)
     assert (int(got.active_ues), int(got.cells_down),
             int(got.reattach_events)) == (3, 1, 2)
+    # the mesh reductions (ported): over a 1-rank mesh every sum is the
+    # rank's own, so the KPIs are the unsharded ones bit for bit (2-rank
+    # meshes: tests/test_torch_mesh_{engine,env}.py)
+    with one_rank_group(tmp_path):
+        ue = make_mesh((1,), ("ue",), "cpu").axes("ue")
+        meshed = t_tel.tti_telemetry(args[0], args[1], *targs, ue_axes=ue,
+                                     **counts)
+    for name, x, y in zip(got._fields, got, meshed):
+        assert (x is None and y is None) or torch.equal(x, y), name
 
 
 BASE = dict(n_ues=40, n_cells=7, seed=2, pathloss_model_name="UMa",

@@ -13,6 +13,8 @@ restored server resumes bit for bit, N chunks of M TTIs equal one N*M
 chunk bit for bit, live control swaps never rebuild the episode
 functions, and serving never writes into the simulator's tensors.
 """
+import copy
+
 import jax
 import numpy as np
 import pytest
@@ -149,45 +151,113 @@ def test_twin_matches_reference_over_three_chunks():
     check_three_chunks(*full_buffer_pair())
 
 
-def test_twin_matches_reference_under_poisson_traffic(tmp_path):
+@pytest.fixture(scope="module")
+def poisson_reference():
     """The reference twin test's own configuration (48 x 7, Poisson
-    traffic, chunks of 10, its default episode key), live controls swapped
-    on the reference and carried over by ``convert.twin_tree``, each port
-    chunk started from the reference's tuple.  A residue flip may part a
-    chunk (``serve_pair``); with these controls none does, and at least
-    two of the three chunks must hold the whole contract."""
-    ref, port = twin_pair(JParams(**BASE), ckpt_dir=str(tmp_path))
+    traffic, chunks of 10, its default episode key) served eagerly once
+    and shared by the Poisson cases: chunk 0, then chunks 1-2 with the
+    live controls swapped before chunk 1 (``"controls"``) and, from a copy
+    of the server after chunk 0, without them (``"plain"``).  Each chunk
+    records the serving tuple it started from and what it served.
+    Returns ``(reference simulator, {branch: [chunk records]})``."""
+    ref_sim = JCRRM(JParams(**BASE))
+    ref = JTwin(ref_sim, J_CHURN, chunk_tti=10)
 
-    def controls(c, ref):
-        if c == 1:
-            ref.set_power(np.asarray(ref.power) * 0.7)
-            ref.set_fairness(0.8)
+    def serve(server):
+        tree, t = reference_twin_tree(server, BASE["seed"]), server.t
+        kpis = server.step_chunk()
+        return dict(tree=tree, t=t, kpis=kpis, tput=np_(server.last_tput),
+                    state=server.state)
 
-    full, flips = serve_pair(ref, port, tmp_path, controls=controls)
-    assert float(port.fairness) == pytest.approx(0.8)
-    assert torch.equal(port.power, torch.as_tensor(np_(ref.power)))
-    assert full >= 2, flips
+    with jax.disable_jit():
+        first = serve(ref)
+        plain = copy.copy(ref)        # the server rebinds, never mutates
+        ref.set_power(np.asarray(ref.power) * 0.7)
+        ref.set_fairness(0.8)
+        runs = {"controls": [first] + [serve(ref) for _ in range(2)],
+                "plain": [first] + [serve(plain) for _ in range(2)]}
+    return ref_sim, runs
 
 
-def test_residue_flip_parts_the_twins_at_the_reference_key():
+def port_twin(ref_sim, **kw):
+    return TwinServer(port_of(ref_sim), T_CHURN, chunk_tti=10,
+                      draws=seed_draws(ref_sim), **kw)
+
+
+def serve_from_tuple(ref_sim, rec, tmp_path):
+    """A port chunk started from the reference's serving tuple of ``rec``
+    (``convert.twin_tree`` through the port's checkpoint and ``restore``):
+    ``(port server, its KPIs, first divergence)``."""
+    port = port_twin(ref_sim, ckpt_dir=str(tmp_path))
+    ckpt.save(str(tmp_path), rec["t"], convert.twin_tree(rec["tree"], "cpu"))
+    assert port.restore() == rec["t"]
+    k_port = port.step_chunk()
+    return port, k_port, first_divergence(port.last_tput, rec["tput"],
+                                          port.sim.params.tti_s)
+
+
+def check_recorded(port, k_port, rec):
+    check_kpis(k_port, rec["kpis"])
+    check_state(port.state, rec["state"])
+    np.testing.assert_allclose(np_(port.last_tput), rec["tput"],
+                               rtol=RTOL_TPUT, atol=1.0)
+
+
+@pytest.mark.parametrize("chunk", range(3))
+def test_twin_matches_reference_under_poisson_traffic(poisson_reference,
+                                                      tmp_path, chunk):
+    """Each chunk of the reference's controls run, the port started from
+    the reference's tuple (live controls swapped on the reference before
+    chunk 1 and carried over by ``convert.twin_tree``).  A chunk whose
+    throughput parts must part at a sub-bit residue flip
+    (``torch_parity.first_divergence``); else it holds the whole
+    contract."""
+    ref_sim, runs = poisson_reference
+    rec = runs["controls"][chunk]
+    port, k_port, div = serve_from_tuple(ref_sim, rec, tmp_path)
+    if div is None:
+        check_recorded(port, k_port, rec)
+    else:
+        assert div[1], (f"chunk {chunk} parts at TTI {div[0]} without a "
+                        "sub-bit residue flip")
+    if chunk:
+        assert float(port.fairness) == pytest.approx(0.8)
+        assert torch.equal(port.power,
+                           torch.as_tensor(rec["tree"]["power"]))
+
+
+def test_twin_poisson_chunks_mostly_hold_the_whole_contract(
+        poisson_reference, tmp_path):
+    """With these controls no residue flip parts a chunk: at least two of
+    the three chunks hold the whole contract."""
+    ref_sim, runs = poisson_reference
+    full = 0
+    for c, rec in enumerate(runs["controls"]):
+        port, k_port, div = serve_from_tuple(ref_sim, rec, tmp_path / str(c))
+        if div is None:
+            check_recorded(port, k_port, rec)
+            full += 1
+    assert full >= 2
+
+
+def test_residue_flip_parts_the_twins_at_the_reference_key(
+        poisson_reference):
     """The hazard the Poisson contract allows for (ROADMAP queue 3): left
     to run on, the dense twins of the reference test's configuration part
     at t = 22, and the first divergence is a sub-bit residue flip -- at
     t = 21 the reference drained two UEs' 12 000-bit packets to a 1-ulp
     residue (9.77e-4 bits) that the port drained to 0."""
-    ref, port = twin_pair(JParams(**BASE))
-    with jax.disable_jit():
-        for c in range(3):
-            k_ref = ref.step_chunk()
-            k_port = port.step_chunk()
-            div = first_divergence(port.last_tput, ref.last_tput,
-                                   port.sim.params.tti_s)
-            if c < 2:
-                assert div is None
-                check_kpis(k_port, k_ref)
-                check_servers(port, ref)
+    ref_sim, runs = poisson_reference
+    port = port_twin(ref_sim)
+    for c, rec in enumerate(runs["plain"]):
+        k_port = port.step_chunk()
+        div = first_divergence(port.last_tput, rec["tput"],
+                               port.sim.params.tti_s)
+        if c < 2:
+            assert div is None
+            check_recorded(port, k_port, rec)
     assert div == (2, True)
-    assert k_port["harq_acks"] == k_ref["harq_acks"] - 1
+    assert k_port["harq_acks"] == rec["kpis"]["harq_acks"] - 1
 
 
 # ------------------------------------------------------- within the port
