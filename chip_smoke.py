@@ -27,7 +27,8 @@ Phases, each printing its own lines:
               chain at 100 000 UEs;
 6. episode -- the main path: the million-UE incremental episode through the
               fused kernel, its launch count per TTI, ms/TTI, peak memory
-              and a torch.profiler breakdown of one TTI; then dense vs
+              and a breakdown of one TTI from the package's trace
+              (``repro_torch.obs.profile``); then dense vs
               incremental at 100 000 UEs on the same draws;
 7. env     -- ``CrrmEnv`` on the ``dense_urban_twin`` preset at 100 000 UEs
               with telemetry: reset, steps to ``done`` (ms per env step),
@@ -114,11 +115,27 @@ Phases, each printing its own lines:
               cell meshes (1, 2) and (2, 2), and the fused route's
               refusal; (5) the three step makers on (1, 2) at 100 000 x
               126, K = 2, against the single-device CRRM.  Times of ranks
-              sharing one card are a record, not a scaling.
+              sharing one card are a record, not a scaling;
+16. report -- the package's own observability: ``obs.report.episode_report``
+              over phase 6's million-UE episode (``"fused"``, 5 TTIs): its
+              roofline row, analytic flops and bytes, device and wall ms
+              per TTI from the package's trace, fused_sinr launches (1 per
+              TTI); a ``trace`` of one TTI with ``annotate`` spans
+              prepare / rollout / sync, its Chrome trace read back for the
+              spans and the fused_sinr kernel, and a ``StageTimer`` report
+              of the same; then the three crrm-ppp cells through
+              ``launch.dryrun.run_crrm_cell`` on a 1-rank NCCL group (peak
+              GiB beside the reckoned, device ms, roofline row, the cell
+              tile where it was cut), each held to the materialised step on
+              sampled rows (attachment exact off near ties, SINR within
+              1e-5 x kappa), and net_256k against the streaming step on the
+              same field (throughput too).  Artifacts go under
+              ``artifacts/dryrun/``.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo, and each mesh run in its own rank) sets every kernel's launch count
-to 0 just before it and reads the counts just after; phases 13 and 14 launch neither kernel (the relaxed
+ppo, each mesh run in its own rank, and the report) sets every kernel's
+launch count to 0 just before it and reads the counts just after; phases
+13 and 14 launch neither kernel (the relaxed
 chain is the torch one: fused_sinr has no backward) and fail if one
 launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
@@ -141,8 +158,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-H100_FP32_OPS = 67e12        # float32 outside the tensor cores, op/s
-H100_BYTES = 3.35e12         # HBM3, bytes/s
 RTOL = 1e-4                  # total / w_best / gamma contract
 #: the million-UE episode of phases 6, 8 and 9 (benchmarks/paper_benches.py)
 EPISODE = dict(n_cells=127, n_sectors=1, seed=3, pathloss_model_name="UMa",
@@ -161,17 +176,6 @@ STORM = dict(outage_rate_hz=5.0, mean_outage_s=0.03, sleep_rate_hz=5.0,
 RTOL_DIST = 1e-6             # pairwise distances: the same rounded ops
 TIE_RTOL = 1e-5              # attachment near-tie margin
 
-# float32 operations per link of fused_sinr, one per arithmetic op or
-# transcendental call: the work of the function as the plain version writes
-# it, fixed when the kernel was first ported so that every kernel time is
-# held to the same bound; it is not recounted from the redesigned
-# csrc/fused_sinr.cu
-OPS_DIST = 11                # 3 sub, 4 mul, 2 add, 2 sqrt
-# sector: atan2, sub, sin, cos, atan2, div, 2 mul, min, sub, mul, pow
-OPS_SECTOR = 12
-OPS_MODEL = {0: 60, 1: 30, 2: 36, 3: 36, 4: 16, 5: 3}   # pathloss + pow
-OPS_PER_K = 6                # fading mul, power mul, 2 adds, mean mul-add
-OPS_ARGMAX = 1
 # Hopper's special-function pipe: log2 / exp2 / reciprocal results per clock
 # per SM, and the SMs of an H100 SXM
 SFU_PER_CLOCK_SM = 16
@@ -219,17 +223,14 @@ def cuda_ms(fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n, m, k, fad_floats, model_id, n_sectors, idx_bytes=0):
-    """The least time of one fused_sinr call on these inputs: the larger of
-    its bytes over the memory rate and its operations over the fp32 rate.
-    ``n`` rows are computed; ``fad_floats`` of fading and ``idx_bytes`` of
-    row index are what those rows read."""
-    in_bytes = 4 * (3 * n + 3 * m + m * k + m) + 4 * fad_floats + idx_bytes
-    out_bytes = 4 * (2 * n * k + 2 * n)
-    ops = n * m * (OPS_DIST + OPS_MODEL[model_id] + k * OPS_PER_K
-                   + OPS_ARGMAX + (OPS_SECTOR if n_sectors > 1 else 0))
-    t_bytes = (in_bytes + out_bytes) / H100_BYTES * 1e3
-    t_ops = ops / H100_FP32_OPS * 1e3
+def bound_ms(ops, nbytes):
+    """The least time of a call that does ``ops`` float32 operations on
+    inputs and outputs of ``nbytes``, as a kernel's ``work`` counts them:
+    the larger of the bytes over the memory rate and the operations over
+    the fp32 rate (``repro_torch.analysis.roofline``)."""
+    from repro_torch.analysis import roofline
+    t_bytes = nbytes / roofline.HBM_BW * 1e3
+    t_ops = ops / roofline.PEAK_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -534,8 +535,9 @@ def full_width_rows():
         host = host_ms(lambda: fk.fused_sinr_accumulate(U, C, P, bore, fad,
                                                         **kw))
         fad_floats = 0 if fad is None else n * fad[0].numel()
-        b_ms, b_by = bound_ms(n, m, k, fad_floats, uma.kernel_spec()[0],
-                              n_sectors, idx_bytes=0 if idx is None else 4 * n)
+        b_ms, b_by = bound_ms(*fk.work(
+            n, m, k, fad_floats, uma.kernel_spec()[0], n_sectors,
+            idx_bytes=0 if idx is None else 4 * n))
         rows[label] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by, max_abs_err=abs_err)
         log("kernel", f"{label}: N={n} M={m} K={k} fading={fading} sectors="
@@ -696,10 +698,7 @@ def phase_pairwise(smi):
     plain_ms = cuda_ms(lambda: pdk.pairwise_dist_plain(U, C), reps=20)
     library_ms = cuda_ms(lambda: (torch.cdist(U[:, :2], C[:, :2]),
                                   torch.cdist(U, C)), reps=20)
-    # the least time: each input read once, both outputs written once
-    b_ms = (8 * n * m + 12 * (n + m)) / H100_BYTES * 1e3
-    o_ms = n * m * OPS_DIST / H100_FP32_OPS * 1e3
-    bound, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    bound, by = bound_ms(*pdk.work(n, m))
     log("pairwise", f"N={n} M={m} ({smi}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, torch.cdist x2 {library_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({by}); kernel vs plain max abs err {abs_err:.3e} "
@@ -779,21 +778,17 @@ def per_tti_ms(fns, static, state, draws, reps=3):
 
 def profiled(fn):
     """(wall seconds, {kernel: (device us, launches)}) of one ``fn()`` under
-    ``torch.profiler``, synchronised at both ends."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = (us, e.count)
-    return wall, kernels
+    the package's trace (``repro_torch.obs.profile.trace``), synchronised
+    at both ends."""
+    import tempfile
+    from repro_torch.obs import profile
+    with tempfile.TemporaryDirectory(prefix="trace-") as d:
+        with profile.trace(d) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return wall, profile.kernel_times(prof)
 
 
 def log_breakdown(phase, unit, wall_us, per, top=8):
@@ -2284,6 +2279,207 @@ def phase_mesh(smi, ms_phase6):
 
 
 
+def ppp_near_ties(U, C, Pw, dryrun):
+    """``near_tie_mask`` of the crrm-ppp network's power-law field."""
+    from repro_torch.sim.pathloss import make_pathloss
+    return near_tie_mask(U, C, Pw, torch.zeros(C.shape[0], device=U.device),
+                         None, make_pathloss("power_law", alpha=dryrun.ALPHA),
+                         1, False)
+
+
+def hold_rows(mesh, U, C, Pw, gamma, a, dryrun):
+    """A streamed cell's rows held to the materialised step over the same
+    rows (a row's attachment and SINR depend on its own position only):
+    attachment exact off near ties (``near_tie_mask``), SINR within 1e-5
+    times the condition number of w / (noise + total - w), with w and u
+    from the incremental step over the rows."""
+    m, k = C.shape[0], Pw.shape[1]
+    g_m, a_m, _ = dryrun.make_step("materialized", mesh, m, k)(U, C, Pw)
+    w, u, _, _ = dryrun.initial_state(dryrun.make_step(
+        "incremental", mesh, m, k, dryrun.DEFAULT_TILE), U, C, Pw)
+    ties = ppp_near_ties(U, C, Pw, dryrun)
+    w64, u64 = w.double(), u.double()
+    kappa = 1.0 + (2 * w64 + u64) / (dryrun.NOISE_W + u64)
+    err = (gamma.double() - g_m.double()).abs() / (kappa * g_m.double().abs())
+    return dict(rows=U.shape[0], ties=int(ties.sum()),
+                bad=int(((a != a_m) & ~ties).sum()),
+                err_kappa=float(err.max()))
+
+
+def ppp_cells(smi):
+    """The three crrm-ppp cells through ``launch.dryrun.run_crrm_cell`` on
+    a 1-rank NCCL group, each held by the repo's own means."""
+    import gc
+    from repro_torch.configs import crrm_ppp
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun
+    from repro_torch.sim import phy
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    out_dir = str(Path(__file__).resolve().parent / "artifacts" / "dryrun")
+    with dryrun.one_rank_group(dev):
+        mesh = D.make_mesh((1, 1), ("data", "model"), dev)
+        for shape, sh in crrm_ppp.SHAPES.items():
+            t0 = time.perf_counter()
+            art, out = dryrun.run_crrm_cell(shape, mesh, "cuda-1x1", out_dir,
+                                            force=True)
+            n, m, k = sh["n_ues"], sh["n_cells"], sh["n_subbands"]
+            peak = art["peak_bytes_per_device"] / 2**30
+            setup = art.get("setup")
+            log("report", f"crrm-ppp {shape} ({art['variant']}, {n} x {m}, "
+                f"K = {k}{', %d moves' % sh['max_moves'] if 'max_moves' in sh else ''}"
+                f"; {smi}): device {art['device_ms']:.1f} ms, wall "
+                f"{art['wall_ms']:.1f} ms for one step"
+                + (f" after a set-up of {setup['device_ms']:.1f} ms"
+                   if setup else "")
+                + f"; peak {peak:.2f} GiB of {card_gib:.2f} (reckoned "
+                f"{art['reckoned_bytes'] / 2**30:.2f}); analytic flops "
+                f"{art['analytic_flops']:.4e}, bytes "
+                f"{art['analytic_bytes']:.4e}; all-reduces "
+                f"{art['collective_counts']}, wire bytes "
+                f"{art['collective_wire_bytes']:g}; tiles "
+                f"{art.get('cell_tile', '-')}/{art.get('setup_tile', '-')}")
+            for cut in art["reduced"]:
+                log("report", f"  reduced: {cut}")
+            log("report", "  " + art["roofline_row"])
+            if peak >= card_gib:
+                raise AssertionError(f"{shape}: peak {peak:.2f} GiB")
+            field = {name: torch.as_tensor(x, device=dev) for name, x in
+                     dryrun.cell_field(sh, art["seed"]).items()}
+            U, C, Pw = field["U"], field["C"], field["Pw"]
+            if art["variant"] == "incremental":
+                U2, w2, u2, a2, bv2, tput = out
+                gamma, a = w2 / (dryrun.NOISE_W + u2), a2
+                rows = field["idx"].long()
+                if not torch.equal(U2[rows], field["new_pos"]):
+                    raise AssertionError(f"{shape}: moved rows not moved")
+            else:
+                gamma, a, tput = out
+                rows = torch.randperm(n, generator=torch.Generator(
+                    device=dev).manual_seed(1), device=dev)[:4096]
+            if not (gamma.shape == (n, k) and tput.shape == (n, k)
+                    and a.shape == (n,) and torch.isfinite(gamma).all()
+                    and torch.isfinite(tput).all()
+                    and int(a.min()) >= 0 and int(a.max()) < m):
+                raise AssertionError(f"{shape}: misshapen or non-finite "
+                                     f"outputs")
+            held = hold_rows(mesh, (U2 if art["variant"] == "incremental"
+                                    else U)[rows].contiguous(), C, Pw,
+                             gamma[rows], a[rows], dryrun)
+            log("report", f"  {held['rows']} rows held to the materialised "
+                f"step: attachment differs off near ties on {held['bad']} "
+                f"({held['ties']} near ties), SINR max err "
+                f"{held['err_kappa']:.2e} x kappa (limit 1e-5)")
+            if held["bad"] or held["err_kappa"] > 1e-5:
+                raise AssertionError(f"{shape}: {held}")
+            if shape == "net_256k":
+                # the step again, warm, under the package's trace
+                mat = dryrun.make_step("materialized", mesh, m, k)
+                wall, per = profiled(lambda: mat(U, C, Pw))
+                log_breakdown("report", "net_256k step", wall * 1e6, per,
+                              top=6)
+                stream = dryrun.make_step("streaming", mesh, m, k,
+                                          dryrun.DEFAULT_TILE)
+                g_s, a_s, t_s = stream(U, C, Pw)
+                w_s, u_s, _, _ = dryrun.initial_state(dryrun.make_step(
+                    "incremental", mesh, m, k, dryrun.DEFAULT_TILE), U, C,
+                    Pw)
+                ties = ppp_near_ties(U, C, Pw, dryrun)
+                bad = int(((a != a_s) & ~ties).sum())
+                e = sinr_tput_errors(gamma, a, tput, g_s, a_s, t_s, w_s, u_s,
+                                     dryrun.NOISE_W, phy)
+                log("report", f"  net_256k materialised vs streaming "
+                    f"(tile {dryrun.DEFAULT_TILE}) on the same field: "
+                    f"attachment exact {e['attach']}, {bad} rows differ off "
+                    f"{int(ties.sum())} near ties; SINR max rel err "
+                    f"{e['sinr_rel']:.3e}, {e['past']} entries past rtol "
+                    f"1e-3, all within 1e-5 x kappa {e['past_within']} "
+                    f"(largest {e['max_kappa']:.3g}); {e['straddle']} "
+                    f"straddle a CQI step; throughput max rel err "
+                    f"{e['tput_rel']:.3e} on the rest")
+                if bad or not (e["past_within"] and e["tput_ok"]):
+                    raise AssertionError(f"net_256k vs streaming: {bad}, {e}")
+                del g_s, a_s, t_s, w_s, u_s, ties
+            log("report", f"  {shape} in {time.perf_counter() - t0:.1f} s")
+            del art, out, field, U, C, Pw, gamma, a, tput
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def phase_report(smi):
+    """Phase 16: the package's own observability on the card -- the
+    episode report of the million-UE episode, a Chrome trace of one TTI
+    read back, a stage timer, then the crrm-ppp cells."""
+    import tempfile
+    from repro_torch.analysis import roofline
+    from repro_torch.core.crrm import CRRM
+    from repro_torch.core.params import CRRM_parameters
+    from repro_torch.mac.engine import Draws
+    from repro_torch.obs import StageTimer, annotate, profile, report, trace
+    t_phase = time.perf_counter()
+    n_tti = 5
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, radio_mode="incremental",
+                               **EPISODE))
+    # -- the main path: counts to 0 just before, read just after ----------
+    torch.cuda.synchronize()
+    zero_counts()
+    art = report.episode_report(sim, n_tti, scenario="million_episode",
+                                inc_backend="fused")
+    counts = launch_counts()
+    r = roofline.from_artifact(art)
+    log("report", f"episode_report 1M x 127 incremental fused, {n_tti} TTIs "
+        f"({smi}): launches {counts} (the report's own count "
+        f"{art['kernel_launches']}); analytic flops "
+        f"{art['analytic_flops']:.4e}, bytes {art['analytic_bytes']:.4e} "
+        f"(rows {art['analytic_breakdown']['rows_init']} once, "
+        f"{art['analytic_breakdown']['rows_per_tti']} per TTI); measured "
+        f"device {art['device_ms_per_tti']:.3f} ms/TTI, wall "
+        f"{art['wall_ms_per_tti']:.3f} ms/TTI (set-up included), "
+        f"{art['launches_per_tti']:.1f} device kernels per TTI; roofline "
+        f"bound {r.bound_s * 1e3 / n_tti:.3f} ms/TTI ({r.dominant})")
+    log("report", "  " + roofline.format_row("million_episode", art))
+    if counts["fused_sinr"] != n_tti or \
+            art["kernel_launches"]["fused_sinr"] != n_tti:
+        raise AssertionError(f"episode_report: {counts}, "
+                             f"{art['kernel_launches']}")
+    if not (art["device_ms_per_tti"] > 0 and art["backend"] == "cuda"
+            and art["collective_wire_bytes"] == 0.0):
+        raise AssertionError(f"episode_report artifact: {art}")
+    # -- one TTI under the trace, with spans and a stage timer ------------
+    fns = sim.episode_fns(inc_backend="fused")
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory(prefix="trace-") as d:
+        with trace(d):
+            with annotate("prepare"):
+                static, state = timer.time("prepare", lambda: (
+                    sim.episode_static(), sim.init_episode_state()))
+            with annotate("rollout"):
+                timer.time("rollout", fns.rollout, static, state, 1,
+                           Draws(3, "cuda"))
+            with annotate("sync"), timer.stage("sync"):
+                torch.cuda.synchronize()
+        path = Path(d) / profile.TRACE_FILE
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e["name"] for e in events
+               if str(e.get("cat", "")).lower() == "kernel"]
+    fused = [k for k in kernels if "fused_sinr" in k]
+    log("report", f"Chrome trace of one TTI ({size} bytes, {len(events)} "
+        f"events, {len(kernels)} kernel events): spans prepare/rollout/sync "
+        f"{[x in names for x in ('prepare', 'rollout', 'sync')]}; "
+        f"fused_sinr kernel events {len(fused)} ({fused[:1]})")
+    if not {"prepare", "rollout", "sync"} <= names or len(fused) != 1:
+        raise AssertionError(f"trace: categories "
+                             f"{sorted({str(e.get('cat')) for e in events})}")
+    log("report", f"stage timer of the same TTI ({smi}):\n"
+        + timer.report("[report]   "))
+    del sim, fns, static, state
+    ppp_cells(smi)
+    log("report", f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     name, smi = phase_device()
@@ -2301,6 +2497,7 @@ def main():
     phase_diffopt()
     phase_ppo()
     phase_mesh(smi, ms_episode)
+    phase_report(smi)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

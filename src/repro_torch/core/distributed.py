@@ -28,11 +28,21 @@ Three step makers (UE rows sharded over the ``data`` axes, cells over
 :func:`_global_best` is the cross-shard argmax of the engine's UE x cell
 mesh and of the max_cqi scheduler: the lowest global index wins a tie,
 exactly ``torch.argmax`` on one device.
+
+Every collective goes through one all-reduce, which counts its calls and
+its bytes on the wire per device in a process-wide
+:class:`CollectiveStats` (:func:`collective_stats`,
+:func:`count_collectives`): the counterpart of the reference's
+``analysis/hlo.py``, which reads them out of the compiled program.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import itertools
 import math
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -186,12 +196,61 @@ def make_mesh(shape, axis_names, device=None) -> Mesh:
     return Mesh(shape, axis_names, resolve_device(device))
 
 
+@dataclasses.dataclass
+class CollectiveStats:
+    """Collectives by kind: ``counts`` (calls), ``bytes_by_kind`` and
+    ``total_wire_bytes`` (bytes on the wire per device), the fields of the
+    reference's ``analysis.hlo.CollectiveStats``.  The cost is the ring
+    algorithm's, as ``hlo.py`` states it: an all-reduce of B bytes over n
+    ranks puts 2 * B * (n - 1) / n on each device's wire, so a 1-rank
+    group counts its calls and 0 bytes."""
+
+    counts: dict = dataclasses.field(default_factory=dict)
+    bytes_by_kind: dict = dataclasses.field(default_factory=dict)
+    total_wire_bytes: float = 0.0
+
+    def add(self, kind: str, wire: float, calls: int = 1):
+        self.counts[kind] = self.counts.get(kind, 0) + calls
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) + wire
+        self.total_wire_bytes += wire
+
+
+#: every collective of this process since it started
+_STATS = CollectiveStats()
+_STATS_LOCK = threading.Lock()
+
+
+def collective_stats() -> CollectiveStats:
+    """A copy of this process's collective counts so far."""
+    with _STATS_LOCK:
+        return copy.deepcopy(_STATS)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yields a :class:`CollectiveStats` that holds, once the block
+    exits, the collectives this process made inside it."""
+    before, region = collective_stats(), CollectiveStats()
+    try:
+        yield region
+    finally:
+        after = collective_stats()
+        for kind, calls in after.counts.items():
+            if calls > before.counts.get(kind, 0):
+                region.add(kind, after.bytes_by_kind[kind]
+                           - before.bytes_by_kind.get(kind, 0.0),
+                           calls - before.counts.get(kind, 0))
+
+
 def _all_reduce(x, ax: Axes, op):
     if x.dtype == torch.bool:
         raise TypeError("reduce a bool tensor as an integer one")
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y.reshape(-1) if y.dim() == 0 else y, op=op,
                     group=ax.group)
+    wire = 2.0 * y.numel() * y.element_size() * (ax.size - 1) / ax.size
+    with _STATS_LOCK:
+        _STATS.add("all-reduce", wire)
     return y
 
 

@@ -266,3 +266,31 @@ def fused_sinr_accumulate(U, C, Pw, boresight, fad=None, *, idx=None,
 
 #: launches of the CUDA kernel (never counts the plain version)
 fused_sinr_accumulate.launches = 0
+
+# float32 operations per link, one per arithmetic op or transcendental call:
+# the work of the function as the plain version writes it, fixed when the
+# kernel was first ported so that every kernel time is held to the same
+# bound; they are not recounted from the redesigned csrc/fused_sinr.cu
+OPS_DIST = 11                # 3 sub, 4 mul, 2 add, 2 sqrt
+# sector: atan2, sub, sin, cos, atan2, div, 2 mul, min, sub, mul, pow
+OPS_SECTOR = 12
+#: pathloss + pow, by the model id of ``kernel_spec()``
+OPS_MODEL = {pathloss.PL_RMA: 60, pathloss.PL_RMA_DISCRETISED: 30,
+             pathloss.PL_UMA: 36, pathloss.PL_UMI: 36, pathloss.PL_INH: 16,
+             pathloss.PL_POWER_LAW: 3}
+OPS_PER_K = 6                # fading mul, power mul, 2 adds, mean mul-add
+OPS_ARGMAX = 1
+
+
+def work(n, m, k, fad_floats, model_id, n_sectors, idx_bytes=0):
+    """``(operations, bytes)`` of one call on ``n`` rows against ``m``
+    cells and ``k`` frequency chunks: the float32 operations per link above
+    times the links, and the bytes read once and written once.
+    ``fad_floats`` of fading and ``idx_bytes`` of row index are what the
+    ``n`` rows read; ``model_id`` is the pathloss model's
+    ``kernel_spec()[0]``."""
+    in_bytes = 4 * (3 * n + 3 * m + m * k + m) + 4 * fad_floats + idx_bytes
+    out_bytes = 4 * (2 * n * k + 2 * n)
+    ops = n * m * (OPS_DIST + OPS_MODEL[model_id] + k * OPS_PER_K
+                   + OPS_ARGMAX + (OPS_SECTOR if n_sectors > 1 else 0))
+    return ops, in_bytes + out_bytes

@@ -91,3 +91,13 @@ def pairwise_dist(U, C):
 
 #: launches of the CUDA kernel (never counts the plain version)
 pairwise_dist.launches = 0
+
+#: float32 operations per link (3 sub, 4 mul, 2 add, 2 sqrt), as the plain
+#: version writes them
+OPS_PER_LINK = 11
+
+
+def work(n, m):
+    """``(operations, bytes)`` of one call on ``n`` UEs and ``m`` cells:
+    each input read once, both (n, m) outputs written once."""
+    return n * m * OPS_PER_LINK, 8 * n * m + 12 * (n + m)

@@ -675,3 +675,43 @@ def test_two_rank_gloo_mesh_on_the_card(cuda, tmp_path):
         assert err <= 1e-5, err
         np.testing.assert_array_equal(s2.U, s1.U)
         np.testing.assert_array_equal(s2.serving, s1.serving)
+
+
+REPORT_EPISODE = dict(n_ues=4000, n_cells=19, seed=3,
+                      pathloss_model_name="UMa", power_W=10.0,
+                      scheduler_policy="pf", fairness_p=0.5,
+                      mobility_step_m=20.0, mobility_move_frac=0.1,
+                      radio_mode="incremental")
+
+
+def test_trace_on_the_card_holds_the_fused_kernel(cuda, tmp_path):
+    """``obs.profile.trace`` of a 3-TTI fused rollout: the Chrome trace
+    holds the annotated span and one fused_sinr kernel event per TTI, and
+    ``kernel_times`` reads them back."""
+    import json
+    from repro_torch.obs import annotate, profile, trace
+    sim = CRRM(CRRM_parameters(**REPORT_EPISODE), device=cuda)
+    fns = sim.episode_fns(inc_backend="fused")
+    static, state = sim.episode_static(), sim.init_episode_state()
+    with trace(str(tmp_path)) as prof:
+        with annotate("rollout"):
+            fns.rollout(static, state, 3, Draws(0, cuda))
+    events = json.loads((tmp_path / profile.TRACE_FILE).read_text())[
+        "traceEvents"]
+    assert "rollout" in {e.get("name") for e in events}
+    fused = [e for e in events if str(e.get("cat", "")).lower() == "kernel"
+             and "fused_sinr" in e["name"]]
+    assert len(fused) == 3
+    times = profile.kernel_times(prof)
+    assert sum(c for k, (_, c) in times.items() if "fused_sinr" in k) == 3
+
+
+def test_episode_report_on_the_card_launches_once_per_tti(cuda):
+    from repro_torch.obs import report
+    sim = CRRM(CRRM_parameters(**REPORT_EPISODE), device=cuda)
+    art = report.episode_report(sim, 4, inc_backend="fused")
+    assert art["kernel_launches"] == {"fused_sinr": 4, "pairwise_dist": 0}
+    assert art["backend"] == "cuda" and art["inc_backend"] == "fused"
+    assert art["device_ms_per_tti"] > 0 and art["launches_per_tti"] >= 1
+    assert art["collective_wire_bytes"] == 0.0
+    assert art["analytic_breakdown"]["rows_per_tti"] == 400

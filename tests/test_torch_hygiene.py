@@ -31,7 +31,7 @@ def test_the_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in port_files()
                if PORT in p.parents}
     assert {"core", "sim", "mac", "kernels", "obs", "env", "train",
-            "robust", "twin", "rl"} <= scanned
+            "robust", "twin", "rl", "analysis", "configs", "launch"} <= scanned
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
@@ -43,7 +43,11 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.twin.server", "repro_torch.train.optim",
               "repro_torch.rl", "repro_torch.rl.policy",
               "repro_torch.rl.rollout", "repro_torch.rl.ppo",
-              "repro_torch.rl.diffopt", "repro_torch.core.distributed"):
+              "repro_torch.rl.diffopt", "repro_torch.core.distributed",
+              "repro_torch.obs.profile", "repro_torch.obs.report",
+              "repro_torch.analysis", "repro_torch.analysis.roofline",
+              "repro_torch.configs", "repro_torch.configs.crrm_ppp",
+              "repro_torch.launch.dryrun"):
         assert m in names, m
 
 

@@ -314,8 +314,26 @@ def job_card(job):
     return outs
 
 
+def job_collectives(job):
+    """A psum of a (100, 3) float32 and a pmax of a (7,) int32 over a UE
+    mesh of all the ranks, inside ``count_collectives``; the process-wide
+    count's growth over the same region."""
+    from repro_torch.core import distributed as D
+    mesh = D.make_mesh((dist.get_world_size(),), ("data",), "cpu")
+    ax = mesh.axes("data")
+    before = D.collective_stats()
+    with D.count_collectives() as c:
+        s = D.psum(torch.ones(100, 3), ax)
+        D.pmax(torch.arange(7, dtype=torch.int32), ax)
+    after = D.collective_stats()
+    return {"counts": c.counts, "bytes_by_kind": c.bytes_by_kind,
+            "total_wire_bytes": c.total_wire_bytes, "sum": _np(s),
+            "process": after.total_wire_bytes - before.total_wire_bytes}
+
+
 JOBS = {"rollouts": job_rollouts, "steps": job_steps, "env": job_env,
-        "restore": job_restore, "card": job_card}
+        "restore": job_restore, "card": job_card,
+        "collectives": job_collectives}
 
 
 def same_on_every_rank(outs):
