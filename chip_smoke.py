@@ -130,14 +130,27 @@ Phases, each printing its own lines:
               sampled rows (attachment exact off near ties, SINR within
               1e-5 x kappa), and net_256k against the streaming step on the
               same field (throughput too).  Artifacts go under
-              ``artifacts/dryrun/``.
+              ``artifacts/dryrun/``;
+17. serve  -- the LM serving path (``repro_torch.serve.engine``): qwen1.5-0.5b
+              at full width on ``tests/lm_fixture.py``'s seeded weights,
+              in bfloat16 and in float32, held to the reference's greedy
+              run (logits within 0.25 / 1e-3 while a slot's inputs agree,
+              tokens exact off counted top-2 near ties); ``python -m
+              repro_torch.launch.serve``'s defaults through its entry
+              point, then timed through ``ServeEngine`` (tok/s, ms per
+              prefill and per decode step, peak memory); one decode step
+              under the package's trace beside its byte bound (the f32
+              params read once); 32 slots x 512-token prompts x 64 new;
+              every LM config whose f32 params fit the card served whole
+              (2 x 8 tokens, finite, greedy runs equal), the others' bytes
+              reckoned on the meta device.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo, each mesh run in its own rank, and the report) sets every kernel's
-launch count to 0 just before it and reads the counts just after; phases
-13 and 14 launch neither kernel (the relaxed
-chain is the torch one: fused_sinr has no backward) and fail if one
-launched.  The line before the last
+ppo, each mesh run in its own rank, the report and serve) sets every
+kernel's launch count to 0 just before it and reads the counts just
+after; phases 13, 14 and 17 launch neither kernel (the relaxed chain is
+the torch one: fused_sinr has no backward; the LM path has no
+hand-written kernel) and fail if one launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
 it exits non-zero before printing any result.
@@ -1584,15 +1597,15 @@ def fresh_peak():
     return torch.cuda.memory_allocated() / 2**30
 
 
-def no_launches(phase):
-    """Phases 13-14 run the relaxed (torch) chain and the dense env: they
-    launch neither kernel, and say so from the counts."""
+def no_launches(phase, why="the relaxed chain is the torch one; "
+                          "fused_sinr has no backward"):
+    """Phases 13-14 run the relaxed (torch) chain and the dense env, phase
+    17 the LM: they launch neither kernel, and say so from the counts."""
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"{phase}: kernels launched on a path that "
                              f"has none: {counts}")
-    log(phase, f"launches {counts}: the path runs neither kernel (the "
-        f"relaxed chain is the torch one; fused_sinr has no backward)")
+    log(phase, f"launches {counts}: the path runs neither kernel ({why})")
 
 
 def grad_step_ms(soft, u, reps=3):
@@ -2481,6 +2494,201 @@ def phase_report(smi):
     log("report", f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
 
 
+#: the larger serving arm: slots, prompt tokens, new tokens
+SERVE_ARM = dict(slots=32, prompt=512, new=64)
+#: full configs served on the card (f32 params: granite 5.5 GB, zamba2
+#: 4.7, yi 24.2, codeqwen 32.8, falcon-mamba 29.1) ...
+SERVE_FULL = ("granite-moe-1b-a400m", "zamba2-1.2b", "yi-6b",
+              "codeqwen1.5-7b", "falcon-mamba-7b")
+#: ... and those whose f32 params exceed the card or leave no room
+SERVE_TOO_BIG = ("deepseek-moe-16b", "deepseek-67b", "qwen2-vl-72b")
+
+
+def timed_arch(arch, timer):
+    """``arch`` whose prefill and decode_step run under ``timer``'s stages
+    ``prefill`` / ``decode`` (synchronised on their outputs)."""
+    import dataclasses
+    return dataclasses.replace(
+        arch,
+        prefill=lambda p, b, m: timer.time("prefill", arch.prefill, p, b, m),
+        decode_step=lambda p, b, c, pos: timer.time(
+            "decode", arch.decode_step, p, b, c, pos))
+
+
+def serve_timed(eng, prompts, max_new):
+    """One ``ServeEngine.run`` over ``prompts``: (its output, wall s, ms
+    per prefill, ms per decode step, prefills, decode steps)."""
+    from repro_torch.obs import StageTimer
+    timer = StageTimer()
+    arch = eng.arch
+    eng.arch = timed_arch(arch, timer)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    wall = time.perf_counter() - t0
+    eng.arch = arch
+    n_pre, n_dec = timer.calls("prefill"), timer.calls("decode")
+    return (out, wall, timer.total_s("prefill") * 1e3 / max(n_pre, 1),
+            timer.total_s("decode") * 1e3 / max(n_dec, 1), n_pre, n_dec)
+
+
+def serve_full_configs(smi):
+    """Every LM config that fits the card in f32 params, served whole:
+    2 requests x 8 new tokens, finite logits, two greedy runs equal."""
+    import gc
+
+    import lm_fixture
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    budget = torch.cuda.mem_get_info()[1]
+    for arch_id in SERVE_TOO_BIG:
+        cfg = get_config(arch_id)
+        meta = transformer.init_params(torch.Generator(), cfg, device="meta")
+        log("serve", f"{arch_id}: not served: its f32 params reckon "
+            f"{transformer.param_bytes(meta) / 1e9:.1f} GB "
+            f"({transformer.param_count(meta) / 1e9:.2f} B params) of the "
+            f"card's {budget / 1e9:.1f} GB")
+    for arch_id in SERVE_FULL:
+        cfg = get_config(arch_id)
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        eng = ServeEngine(make_arch(cfg), batch_slots=2, max_len=64, seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        steps: list = []
+        eng.arch = lm_fixture.recording(eng.arch, steps)
+        runs = []
+        for _ in range(2):
+            for n in (5, 9):
+                eng.submit(np.arange(n) % cfg.vocab_size, max_new_tokens=8)
+            t1 = time.perf_counter()
+            runs.append(eng.run()["results"])
+            wall = time.perf_counter() - t1
+        finite = all(np.isfinite(x).all() for x in steps)
+        log("serve", f"{arch_id} full ({cfg.family}, {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.dtype} compute, "
+            f"{transformer.param_bytes(eng.params) / 1e9:.2f} GB f32 params; "
+            f"{smi}): init {t_init:.2f} s, a run of 2 x 8 tokens "
+            f"{wall:.3f} s; finite logits {finite}; greedy runs equal "
+            f"{runs[0] == runs[1]}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (held "
+            f"before: {base:.2f}); tokens {runs[0]}")
+        if not finite or runs[0] != runs[1] or \
+                [len(t) for t in runs[0].values()] != [8, 8]:
+            raise AssertionError(f"serve {arch_id}: {runs}")
+        del eng, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_serve(smi):
+    """Phase 17: the LM serving path on the card -- qwen1.5-0.5b at full
+    width held to the reference's fixture, ``launch.serve``'s defaults,
+    a larger arm, one profiled decode step, the full configs."""
+    import gc
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    # -- the main path: counts to 0 just before, read just after ----------
+    torch.cuda.synchronize()
+    zero_counts()
+    # qwen1.5-0.5b at full width on the fixture's seeded weights
+    t0 = time.perf_counter()
+    tree = lm_fixture.param_tree(lm_fixture.config("float32"))
+    log("serve", f"fixture weights (numpy seed {lm_fixture.SEED}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for dtype in lm_fixture.DTYPES:
+        t0 = time.perf_counter()
+        res = lm_fixture.check(torch.device("cuda"), dtype, tree)
+        log("serve", f"qwen1.5-0.5b full width, {dtype} compute, held to "
+            f"the reference's fixture ({smi}): {res['held_steps']} slot "
+            f"steps held, logits max |d| {res['max_err']:.3e} (tol "
+            f"{lm_fixture.TOL[dtype]}), near ties {res['near_ties']} "
+            f"(margin < {lm_fixture.NEAR_TIE[dtype]}), parted "
+            f"{res['parted']}; tokens {res['tokens']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    # launch.serve's defaults through its entry point (the card by default)
+    out = launch_serve.main([])
+    log("serve", f"python -m repro_torch.launch.serve (defaults: 8 "
+        f"requests, 16 new, 4 slots, max_len 128): {out['n_tokens']} tokens "
+        f"at {out['tokens_per_s']:.1f} tok/s (cold: the first run of the "
+        f"process)")
+    cfg = lm_fixture.config("bfloat16")
+    arch = make_arch(cfg)
+    eng = ServeEngine(arch, batch_slots=4, max_len=128)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
+               for _ in range(8)]
+    base = fresh_peak()
+    for label in ("warm-up", "measured"):
+        o, wall, ms_pre, ms_dec, n_pre, n_dec = serve_timed(eng, prompts, 16)
+        log("serve", f"launch.serve defaults, {label} run ({smi}): "
+            f"{o['n_tokens']} tokens in {wall:.3f} s = {o['tokens_per_s']:.1f}"
+            f" tok/s; {n_pre} prefills at {ms_pre:.2f} ms, {n_dec} decode "
+            f"steps at {ms_dec:.3f} ms; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (held "
+            f"before: {base:.2f})")
+    # one decode step under the package's trace, beside its byte bound
+    tokens = torch.as_tensor(np.stack([np.arange(20) % cfg.vocab_size] * 4),
+                             device="cuda")
+    last, caches = arch.prefill(eng.params, {"tokens": tokens}, 128)
+    step = {"tokens": torch.argmax(last[:, -1], -1)[:, None].to(torch.int32)}
+    arch.decode_step(eng.params, step, caches, 20)
+    wall, per = profiled(lambda: arch.decode_step(eng.params, step, caches,
+                                                  21))
+    log_breakdown("serve", "decode step", wall * 1e6, per)
+    pbytes = transformer.param_bytes(eng.params)
+    log("serve", f"decode step byte bound: {pbytes / 1e9:.3f} GB of f32 "
+        f"params read once / {roofline.HBM_BW / 1e12:.2f} TB/s = "
+        f"{pbytes / roofline.HBM_BW * 1e3:.3f} ms (the step above casts "
+        f"every weight to bf16 at its use, as the reference does)")
+    del eng, caches, last
+    gc.collect()
+    # the larger arm
+    arm = SERVE_ARM
+    eng = ServeEngine(arch, batch_slots=arm["slots"],
+                      max_len=arm["prompt"] + arm["new"])
+    prompts = [rng.integers(0, cfg.vocab_size, arm["prompt"])
+               for _ in range(arm["slots"])]
+    base = fresh_peak()
+    o, wall, ms_pre, ms_dec, n_pre, n_dec = serve_timed(eng, prompts,
+                                                        arm["new"])
+    kv = sum(c.numel() * c.element_size() for c in arch.init_cache(
+        arm["slots"], arm["prompt"] + arm["new"], device="meta").values())
+    log("serve", f"larger arm, {arm['slots']} slots x {arm['prompt']}-token "
+        f"prompts x {arm['new']} new ({smi}): {o['n_tokens']} tokens in "
+        f"{wall:.3f} s = {o['tokens_per_s']:.1f} tok/s; prefill "
+        f"{ms_pre:.1f} ms ({arm['slots'] * arm['prompt']} tokens), {n_dec} "
+        f"decode steps at {ms_dec:.3f} ms (bound: params + the whole "
+        f"{kv / 2**30:.2f} GiB cache read once = "
+        f"{(pbytes + kv) / roofline.HBM_BW * 1e3:.3f} ms); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (held before: "
+        f"{base:.2f})")
+    if o["n_tokens"] != arm["slots"] * arm["new"]:
+        raise AssertionError(f"larger arm: {o['n_tokens']} tokens")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_full_configs(smi)
+    no_launches("serve", "the LM serving path has no hand-written kernel")
+    log("serve", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -2498,6 +2706,7 @@ def main():
     phase_ppo()
     phase_mesh(smi, ms_episode)
     phase_report(smi)
+    phase_serve(smi)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

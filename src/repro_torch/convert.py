@@ -1,7 +1,9 @@
 """Carry the JAX package's state over into the port.
 
 Every input is plain data -- a dict of ``CRRM_parameters`` fields and
-numpy arrays -- so this module needs neither package of the reference.
+numpy arrays, or an LM's param and cache trees of numpy arrays
+(:func:`lm_params`, :func:`lm_cache`) -- so this module needs neither
+package of the reference.
 The layouts and dtypes stay those of the reference at every public
 function: attachment, serving cells, TTT counters, HARQ retx counts, the
 round-robin cursor and the TTI counter stay int32; floats stay float32.
@@ -17,8 +19,10 @@ from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.env.crrm_env import EnvObs, TopoEnvState
 from repro_torch.mac.engine import EpisodeState, EpisodeStatic
+from repro_torch.models import transformer
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.sim.radio import RadioState
+from repro_torch.tree import flatten
 
 
 def to_tensor(x, device):
@@ -154,3 +158,55 @@ def adamw_state(data: dict, device) -> dict:
     if set(data) != {"mu", "nu", "count"}:
         raise ValueError(f"not an adamw state: keys {sorted(data)}")
     return _tree(data, device)
+
+
+
+_LM_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+              "int8": torch.int8}
+
+
+def _lm_tensor(x, device):
+    """A numpy leaf of an LM tree as a tensor of the same dtype (bfloat16,
+    which numpy carries as ``ml_dtypes.bfloat16``, through its bits)."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr.view(np.uint16), order="C"))
+        return bits.view(torch.bfloat16).to(device)
+    if arr.dtype.name not in _LM_DTYPES:
+        raise ValueError(f"no LM leaf of dtype {arr.dtype}")
+    return torch.as_tensor(np.array(arr, order="C"), device=device).to(
+        _LM_DTYPES[arr.dtype.name])
+
+
+def _lm_tree(data, device):
+    if isinstance(data, dict):
+        return {k: _lm_tree(v, device) for k, v in data.items()}
+    return _lm_tensor(data, device)
+
+
+def lm_params(tree: dict, cfg, device) -> dict:
+    """The port's LM params (``models.transformer``) from the reference's
+    param tree as numpy arrays: the key paths and shapes of
+    ``init_params(cfg)`` (every ``layers`` leaf stacked on a leading
+    ``cfg.n_layers`` axis), each leaf's dtype kept (``param_dtype``, and
+    float32 where the reference keeps it: the router, ``dt_proj``,
+    ``dt_bias``, ``A_log``, ``D``)."""
+    want_keys, want = flatten(transformer.init_params(torch.Generator(), cfg,
+                                                      device="meta"))
+    keys, leaves = flatten(tree)
+    if keys != want_keys:
+        raise ValueError(f"not a {cfg.name} param tree: keys "
+                         f"{sorted(set(keys) ^ set(want_keys))} differ")
+    bad = [k for k, w, x in zip(keys, want, leaves)
+           if tuple(w.shape) != np.shape(x)]
+    if bad:
+        raise ValueError(f"{cfg.name}: shapes differ at {bad}")
+    return _lm_tree(tree, device)
+
+
+def lm_cache(tree: dict, device) -> dict:
+    """The port's decode caches from the reference's (numpy leaves, the
+    same keys and stacked shapes; int8 values stay int8)."""
+    if not {"k", "v"} <= set(tree) and not {"h", "conv"} <= set(tree):
+        raise ValueError(f"not an LM cache: keys {sorted(tree)}")
+    return _lm_tree(tree, device)

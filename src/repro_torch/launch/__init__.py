@@ -1,3 +1,4 @@
 """Launchers of the port: ``dryrun`` runs the crrm-ppp cells on one
-device.  The LM launchers (``mesh``, ``serve``, ``train``) wait for the
-LM scaffolding's slice."""
+device; ``serve`` serves an LM through ``serve.engine.ServeEngine``.  The
+LM training and mesh launchers (``train``, ``mesh``) wait for the LM
+training slice."""

@@ -120,6 +120,9 @@ class StageTimer:
     def total_s(self, name: str) -> float:
         return self._total.get(name, 0.0)
 
+    def calls(self, name: str) -> int:
+        return self._calls.get(name, 0)
+
     def report(self, prefix: str = "") -> str:
         if not self._total:
             return f"{prefix}(no stages timed)"

@@ -12,6 +12,9 @@ exact except on rows whose two best measurements differ by less than 1e-5
 relative in the plain version (counted; at most 1 % of the rows).  The
 pairwise-distance kernel vs ``pairwise_dist_plain``: rtol 1e-6 (the kernel
 rounds each product and sum as the plain version's separate kernels do).
+The LM serving path, which has no hand-written kernel, is held on the card
+to the port on the CPU (reduced configs) and to the reference's full-width
+fixture (``tests/lm_fixture.py``).
 """
 import numpy as np
 import pytest
@@ -715,3 +718,94 @@ def test_episode_report_on_the_card_launches_once_per_tti(cuda):
     assert art["device_ms_per_tti"] > 0 and art["launches_per_tti"] >= 1
     assert art["collective_wire_bytes"] == 0.0
     assert art["analytic_breakdown"]["rows_per_tti"] == 400
+
+
+# -- the LM serving path --------------------------------------------------------
+LM_ARCHS = ["qwen1.5-0.5b", "codeqwen1.5-7b", "yi-6b", "deepseek-67b",
+            "granite-moe-1b-a400m", "deepseek-moe-16b", "falcon-mamba-7b",
+            "zamba2-1.2b", "qwen2-vl-72b"]
+
+
+def _lm_run(arch, params, bt, device, n_prompt=6):
+    """forward, prefill of ``n_prompt`` positions and the teacher-forced
+    decode steps after it, as CPU float32 tensors."""
+    cut = lambda a, b: {k: (v[:, :, a:b] if k == "positions" else v[:, a:b])
+                        .to(device) for k, v in bt.items()}
+    total = bt["positions"].shape[2] if "positions" in bt else \
+        bt["tokens"].shape[1]
+    out = [arch.forward(params, cut(0, total))]
+    last, caches = arch.prefill(params, cut(0, n_prompt), total)
+    out.append(last)
+    for pos in range(n_prompt, total):
+        logits, caches = arch.decode_step(params, cut(pos, pos + 1), caches,
+                                          pos)
+        out.append(logits)
+    return [x.float().cpu() for x in out]
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_reduced_on_the_card_matches_the_cpu(cuda, arch_id):
+    """The port on the card against the port on the CPU, same params and
+    inputs (reduced config, float32, no TF32): forward, prefill and 3
+    decode steps within rtol/atol 1e-4 (sum order of cuBLAS vs the CPU's
+    matmuls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import make_arch
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch_id, reduced=True)
+    arch = make_arch(cfg)
+    params = arch.init(torch.Generator("cpu").manual_seed(0))
+    on_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(1)
+    if cfg.family == "vlm":
+        t = np.arange(9)
+        bt = {"embeds": torch.as_tensor(rng.standard_normal(
+            (2, 9, cfg.d_model)).astype(np.float32)),
+            "positions": torch.as_tensor(np.stack([t, t // 2, t % 3])[:, None]
+                                         .repeat(2, axis=1).astype(np.int32))}
+    else:
+        bt = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, 9)).astype(np.int32))}
+    want = _lm_run(arch, params, bt, "cpu")
+    got = _lm_run(arch, on_card, bt, cuda)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.fixture(scope="module")
+def qwen_full_tree():
+    """qwen1.5-0.5b's full-width seeded weights (numpy, ~2.5 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import lm_fixture
+    return lm_fixture.param_tree(lm_fixture.config("float32"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_full_width_serving_holds_the_reference_fixture(cuda, dtype,
+                                                           qwen_full_tree):
+    """``ServeEngine`` on qwen1.5-0.5b at full width, held to the
+    reference's run (``tests/lm_fixture.py``'s contract: logits within
+    1e-3 / 0.25 while the inputs agree, tokens exact off near ties)."""
+    import lm_fixture
+    res = lm_fixture.check(cuda, dtype, qwen_full_tree)
+    assert res["held_steps"] >= len(lm_fixture.PROMPT_LENS) * 2
+
+
+def test_serve_engine_defaults_to_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(make_arch(get_config("qwen1.5-0.5b", reduced=True)),
+                      batch_slots=2, max_len=32)
+    assert eng.device.type == "cuda"
+    assert eng.params["lm_head"]["kernel"].is_cuda
+    eng.submit(np.arange(5), max_new_tokens=4)
+    assert len(eng.run()["results"][0]) == 4

@@ -60,7 +60,10 @@ def one_device_mesh():
 def test_shapes_and_arch_ids_are_the_reference_s():
     assert crrm_ppp.SHAPES == j_crrm_ppp.SHAPES
     assert crrm_ppp.ARCH_ID == j_crrm_ppp.ARCH_ID
-    assert ARCH_IDS == ["crrm-ppp"] and LM_ARCH_IDS == []
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro.configs import LM_ARCH_IDS as J_LM_ARCH_IDS
+    assert ARCH_IDS == J_ARCH_IDS and LM_ARCH_IDS == J_LM_ARCH_IDS
+    assert "crrm-ppp" in ARCH_IDS and "crrm-ppp" not in LM_ARCH_IDS
 
 
 @pytest.mark.parametrize("shape", sorted(j_crrm_ppp.SHAPES))

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
 An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``,
-of the fixture loader it reads (``tests/relax_fixture.py``) and of the mesh
+of the fixture loaders it reads (``tests/relax_fixture.py``,
+``tests/lm_fixture.py``) and of the mesh
 ranks' module (``tests/torch_mesh.py``) finds no import of ``jax``,
 ``repro`` or ``msgpack``; a
 fresh interpreter that imports every port module has not loaded ``jax``; the
@@ -24,6 +25,7 @@ PORT = ROOT / "src" / "repro_torch"
 def port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "relax_fixture.py",
+                                         ROOT / "tests" / "lm_fixture.py",
                                          ROOT / "tests" / "torch_mesh.py"]
 
 
@@ -31,7 +33,8 @@ def test_the_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in port_files()
                if PORT in p.parents}
     assert {"core", "sim", "mac", "kernels", "obs", "env", "train",
-            "robust", "twin", "rl", "analysis", "configs", "launch"} <= scanned
+            "robust", "twin", "rl", "analysis", "configs", "launch",
+            "models", "serve"} <= scanned
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
@@ -47,7 +50,13 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.obs.profile", "repro_torch.obs.report",
               "repro_torch.analysis", "repro_torch.analysis.roofline",
               "repro_torch.configs", "repro_torch.configs.crrm_ppp",
-              "repro_torch.launch.dryrun"):
+              "repro_torch.launch.dryrun", "repro_torch.models.config",
+              "repro_torch.models.layers", "repro_torch.models.attention",
+              "repro_torch.models.flash", "repro_torch.models.moe",
+              "repro_torch.models.mamba", "repro_torch.models.transformer",
+              "repro_torch.models.registry", "repro_torch.serve.engine",
+              "repro_torch.launch.serve", "repro_torch.configs.qwen1p5_0p5b",
+              "repro_torch.configs.zamba2_1p2b"):
         assert m in names, m
 
 
@@ -98,6 +107,11 @@ def test_entry_points_default_to_the_card():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CRRM(CRRM_parameters(n_ues=4))
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(make_arch(get_config("qwen1.5-0.5b", reduced=True)))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"

@@ -24,6 +24,8 @@ and the UE x cell mesh (tests/test_torch_mesh_cells.py) have files of
 their own, so that each file's eager reference runs and spawns stay under
 a minute.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import numpy as np
 import pytest
@@ -103,19 +105,25 @@ def ue_mesh_runs(specs, tmp_dir, dense_arms=False, **job_kw):
     ``(rank outputs, reference rollouts, port rollouts)``.  With
     ``dense_arms`` every case also runs dense on the mesh, as
     ``<name>/dense``."""
-    cases, refs, singles = {}, {}, {}
+    cases, singles, pending = {}, {}, []
     for name, (_, fns_kw, kw) in specs.items():
         ref, port = pair(JParams(**BASE, **kw))
         cases[name], inputs, singles[name] = case_of(ref, port, fns_kw,
                                                      N_TTI, UE_MESH)
-        refs[name] = reference_rollout(ref, inputs, fns_kw, N_TTI)
+        pending.append((name, ref, inputs, fns_kw))
         if dense_arms:
             kw_d = dict(cases[name]["fns_kw"], radio_mode="dense")
             kw_d.pop("inc_backend", None)
             cases[f"{name}/dense"] = dict(cases[name], fns_kw=kw_d)
-    outs = run_ranks(dict(name="rollouts", cases=cases, **job_kw), 2,
-                     tmp_dir)
-    return outs, refs, singles
+    # the reference's rollouts (eager under bursty traffic: seconds each)
+    # run in a thread of this process while the ranks run theirs
+    with ThreadPoolExecutor(1) as pool:
+        refs = pool.submit(lambda: {
+            name: reference_rollout(ref, inputs, fns_kw, N_TTI)
+            for name, ref, inputs, fns_kw in pending})
+        outs = run_ranks(dict(name="rollouts", cases=cases, **job_kw), 2,
+                         tmp_dir)
+        return outs, refs.result(), singles
 
 
 @pytest.fixture(scope="module")

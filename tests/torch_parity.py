@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import lm_fixture
 from repro.core.crrm import CRRM as JCRRM
 from repro.env.crrm_env import CrrmEnv as JEnv
 from repro.sim import deploy as j_deploy
@@ -454,3 +455,13 @@ def check_resampled_reset(name):
     assert torch.equal(out_c[0].ep.U, out_t[0].ep.U)
     with pytest.raises(ValueError, match="resample_topology"):
         port.step_autoreset(st, None, 1)
+
+
+def top2_margin(logits):
+    """(argmax, gap between the two largest) over the last axis: greedy
+    decoding's near tie.  XLA and PyTorch reduce in different orders, so a
+    gap near zero may flip the argmax; a flip is counted against the
+    reference's gap, as an attachment's near tie is
+    (``tests/lm_fixture.py``'s ``hold``)."""
+    arg, margin, _ = lm_fixture.top2(np_(logits))
+    return arg, margin
