@@ -143,13 +143,26 @@ Phases, each printing its own lines:
               params read once); 32 slots x 512-token prompts x 64 new;
               every LM config whose f32 params fit the card served whole
               (2 x 8 tokens, finite, greedy runs equal), the others' bytes
-              reckoned on the meta device.
+              reckoned on the meta device;
+18. train  -- the LM training path (``repro_torch.train``): qwen1.5-0.5b at
+              full width on the seeded weights, 3 AdamW steps in float32
+              and bfloat16 held to the reference's run
+              (``tests/lm_train_fixture.py``: losses, gradient probes,
+              params off counted sign flips); flash's memory-exact
+              backward at seq 4096 against the naive gradient, both
+              peaks; ``python -m repro_torch.launch.train`` for 30 steps
+              with a checkpoint, the loop's resume to 40 against an
+              uninterrupted 40 in deterministic mode; the bf16 8 x 2048
+              arm (ms per step, tok/s, peak, the model-flops bound, one
+              profiled step); one step of each other config whose AdamW
+              state fits the card, the rest reckoned on the meta device;
+              seamless-m4t-large-v2 served whole.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo, each mesh run in its own rank, the report and serve) sets every
-kernel's launch count to 0 just before it and reads the counts just
-after; phases 13, 14 and 17 launch neither kernel (the relaxed chain is
-the torch one: fused_sinr has no backward; the LM path has no
+ppo, each mesh run in its own rank, the report, serve and train) sets
+every kernel's launch count to 0 just before it and reads the counts just
+after; phases 13, 14, 17 and 18 launch neither kernel (the relaxed chain
+is the torch one: fused_sinr has no backward; the LM path has no
 hand-written kernel) and fail if one launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
@@ -159,6 +172,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -167,6 +181,11 @@ import time
 import types
 from pathlib import Path
 
+# cuBLAS's deterministic workspace, read when its handles are made: the
+# deterministic-mode phases run matmuls (the LM training resume)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -1599,8 +1618,9 @@ def fresh_peak():
 
 def no_launches(phase, why="the relaxed chain is the torch one; "
                           "fused_sinr has no backward"):
-    """Phases 13-14 run the relaxed (torch) chain and the dense env, phase
-    17 the LM: they launch neither kernel, and say so from the counts."""
+    """Phases 13-14 run the relaxed (torch) chain and the dense env,
+    phases 17-18 the LM: they launch neither kernel, and say so from the
+    counts."""
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"{phase}: kernels launched on a path that "
@@ -2689,6 +2709,308 @@ def phase_serve(smi):
     log("serve", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
 
 
+#: the timed training arm (tokens a step: 16 384) and the full configs
+#: trained one step at full width (f32 AdamW state: 16 bytes a param)
+TRAIN_ARM = dict(batch=8, seq=2048)
+TRAIN_FULL = ("granite-moe-1b-a400m", "zamba2-1.2b", "seamless-m4t-large-v2")
+TRAIN_FULL_SHAPE = dict(batch=2, seq=256)
+#: flash's backward at length: causal, b 1, 16 heads, hd 64, the config's
+#: chunks (512 / 1024: 8 x 4 blocks)
+FLASH_LONG = dict(b=1, s=4096, h=16, hd=64, cq=512, ckv=1024)
+TRAIN_DIR = Path(__file__).resolve().parent / "artifacts" / "train"
+#: phase 18's device
+CARD = "cuda"
+
+
+def train_batch(cfg, b, s, rng, dev):
+    """A train batch on ``dev``: uniform random tokens from ``rng`` and
+    their shift as labels, with random stub ``src_embeds`` for the
+    encoder-decoder."""
+    tokens = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.standard_normal((b, s, cfg.d_model),
+                                                  dtype=np.float32)
+    return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+            for k, v in batch.items()}
+
+
+def flash_backward_at_length(smi):
+    """Flash's memory-exact backward against autograd through the plain
+    forward at seq 4096 (float32), with both peaks and times."""
+    from repro_torch.models import flash
+    f = FLASH_LONG
+    gen = torch.Generator(CARD).manual_seed(0)
+    shape = (f["b"], f["s"], f["h"], f["hd"])
+    q, k, v, do = (torch.randn(shape, device=CARD, generator=gen)
+                   for _ in range(4))
+    out = {}
+    for name, fn in (("flash", flash.flash_attention),
+                     ("naive", flash.flash_attention_naive_grad)):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        run = lambda: torch.autograd.grad(
+            (fn(*xs, causal=True, chunk_q=f["cq"], chunk_kv=f["ckv"])
+             * do).sum(), xs)
+        run()
+        base = fresh_peak()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = run()
+        torch.cuda.synchronize()
+        out[name] = (g, (time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated() / 2**30 - base)
+    (gf, ms_f, peak_f), (gn, ms_n, peak_n) = out["flash"], out["naive"]
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(gf, gn))
+    log("train", f"flash backward at length (causal, b {f['b']}, "
+        f"{f['h']} heads, hd {f['hd']}, seq {f['s']}, chunks {f['cq']} / "
+        f"{f['ckv']}, float32; {smi}): dq/dk/dv max |d| {err:.3e} of max|g| "
+        f"(tol 1e-5) against autograd through the plain forward; forward + "
+        f"backward {ms_f:.1f} ms, peak {peak_f:.3f} GiB above the inputs; "
+        f"naive gradient {ms_n:.1f} ms, peak {peak_n:.3f} GiB")
+    if err > 1e-5:
+        raise AssertionError(f"flash backward at length: {err:.3e}")
+
+
+def train_resume(smi):
+    """``launch.train``'s entry point at full width for 30 steps with a
+    checkpoint; then the loop resumes it to 40 and runs an uninterrupted
+    40 with the launcher's optimizer for ``--steps 30`` (its schedule is
+    tied to ``--steps``), the two step-40 states held to the reference
+    test's contract, in deterministic mode."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import train
+    from repro_torch.tree import flatten
+    d = TRAIN_DIR / "resume"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    h30 = deterministic(lambda: launch_train.main(
+        ["--arch", "qwen1.5-0.5b", "--batch", "8", "--seq-len", "64",
+         "--steps", "30", "--ckpt-dir", str(d), "--ckpt-every", "30",
+         "--device", CARD]))
+    t1 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    arch = make_arch(cfg)
+    opt = optim.adamw(optim.warmup_cosine(1e-3, max(30 // 20, 5), 30))
+    data = SyntheticLM(cfg.vocab_size, 8, 64, seed=0)
+    resumed, h40 = deterministic(lambda: train(
+        arch, opt, None, data, steps=40, ckpt_dir=str(d), ckpt_every=100,
+        device=CARD))
+    t2 = time.perf_counter()
+    full, hfull = deterministic(lambda: train(arch, opt, None, data,
+                                              steps=40, device=CARD))
+    t3 = time.perf_counter()
+    pairs = list(zip(flatten(resumed)[1], flatten(full)[1]))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(float((a.float() - b.float()).abs().sub(
+        2e-4 * b.float().abs()).max()) for a, b in pairs)
+    log("train", f"launch.train qwen1.5-0.5b full width, 8 x 64 tokens a "
+        f"step ({smi}): 30 steps {t1 - t0:.1f} s with a checkpoint "
+        f"({30 * 512 / (t1 - t0):.0f} tok/s; losses {h30}); the loop "
+        f"resumed to 40 {t2 - t1:.1f} s with a restore and a checkpoint "
+        f"(losses {h40}), uninterrupted 40 {t3 - t2:.1f} s "
+        f"({40 * 512 / (t3 - t2):.0f} tok/s; losses {hfull}); step-40 "
+        f"state resumed vs "
+        f"uninterrupted: max(|d| - 2e-4 |b|) {worst:.3e} (atol 2e-5), "
+        f"bitwise in deterministic mode {bitwise}; disk free "
+        f"{shutil.disk_usage(TRAIN_DIR).free / 1e9:.0f} GB")
+    if worst > 2e-5 or not hfull[-1] < hfull[0] or \
+            abs(h40[-1] - hfull[-1]) > 2e-4 * abs(hfull[-1]):
+        raise AssertionError(f"train resume: {worst}, {h40}, {hfull}")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def train_arm(smi):
+    """qwen1.5-0.5b, bf16 compute, AdamW, 8 x 2048: ms per step, tok/s,
+    peak memory beside the model-flops bound, one profiled step."""
+    from repro_torch.analysis import flops, roofline
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = get_config("qwen1.5-0.5b")
+    b, s = TRAIN_ARM["batch"], TRAIN_ARM["seq"]
+    arch = make_arch(cfg)
+    opt = optim.adamw(optim.warmup_cosine(1e-3, 5, 300))
+    state = init_state(arch, opt, seed=0, device=CARD)
+    step = make_train_step(arch, opt)
+    rng = np.random.default_rng(0)
+    batches = [train_batch(cfg, b, s, rng, CARD) for _ in range(4)]
+    state, m = step(state, batches[0])                    # warm-up
+    base = fresh_peak()
+    ms = []
+    for batch in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = sorted(ms)[1]
+    fwd = flops.fwd_flops(cfg, b * s, s)
+    bound = 3 * fwd / roofline.PEAK_FLOPS_BF16 * 1e3
+    log("train", f"timed arm qwen1.5-0.5b full width, {cfg.dtype} compute, "
+        f"AdamW, {b} x {s} = {b * s} tokens a step ({smi}): ms per step "
+        f"{[round(x, 1) for x in ms]} (median {med:.1f}), "
+        f"{b * s / med * 1e3:.0f} tok/s, loss {float(m['loss']):.4f}; "
+        f"peak {peak:.2f} GiB (held before: {base:.2f}; params "
+        f"{transformer.param_bytes(state['params']) / 2**30:.2f} GiB f32)")
+    log("train", f"model flops of a step: 3 x forward = {3 * fwd:.4e} "
+        f"(useful; step_flops charges 5 x = {5 * fwd:.4e} with remat); "
+        f"bf16 bound {bound:.1f} ms at {roofline.PEAK_FLOPS_BF16 / 1e12:.0f}"
+        f" TFLOP/s -> {bound / med * 100:.1f} % of peak; 5 x at the bound "
+        f"{5 * fwd / roofline.PEAK_FLOPS_BF16 * 1e3:.1f} ms")
+    wall, per = profiled(lambda: step(state, batches[1]))
+    log_breakdown("train", "train step", wall * 1e6, per, top=10)
+    del state, batches
+
+
+def train_full_configs(smi):
+    """One train step of every other LM config whose f32 AdamW state fits
+    the card, at full width; the rest reckoned on the meta device; the
+    encoder-decoder also served whole."""
+    import gc
+    from repro_torch.configs import LM_ARCH_IDS, get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    budget = torch.cuda.mem_get_info()[1]
+    for arch_id in LM_ARCH_IDS:
+        if arch_id in TRAIN_FULL + ("qwen1.5-0.5b",):
+            continue
+        n = transformer.param_count(make_arch(get_config(arch_id)).init(
+            torch.Generator(), device="meta"))
+        log("train", f"{arch_id}: not trained: its f32 params, grads and "
+            f"AdamW moments reckon {16 * n / 1e9:.1f} GB ({n / 1e9:.2f} B "
+            f"params) of the card's {budget / 1e9:.1f} GB")
+    b, s = TRAIN_FULL_SHAPE["batch"], TRAIN_FULL_SHAPE["seq"]
+    rng = np.random.default_rng(1)
+    for arch_id in TRAIN_FULL:
+        cfg = get_config(arch_id)
+        arch = make_arch(cfg)
+        opt = optim.adamw(optim.warmup_cosine(1e-3, 5, 300))
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        state = init_state(arch, opt, seed=0, device=CARD)
+        batch = train_batch(cfg, b, s, rng, CARD)
+        state, m = make_train_step(arch, opt)(state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        n = transformer.param_count(state["params"])
+        log("train", f"{arch_id} full ({cfg.family}, {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.dtype} compute, {n / 1e9:.2f} B "
+            f"params; {smi}): init + one AdamW step of {b} x {s} tokens "
+            f"{wall:.2f} s, loss {loss:.4f}, grad_norm "
+            f"{float(m['grad_norm']):.3f}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (held "
+            f"before: {base:.2f}; reckoned state {16 * n / 2**30:.2f} GiB)")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train {arch_id}: loss {loss}")
+        if cfg.family == "encdec":
+            serve_encdec(arch, state["params"], rng, smi)
+        del state, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_encdec(arch, params, rng, smi, n_new=8):
+    """The encoder-decoder served whole: a prefill over random
+    ``src_embeds`` and ``n_new`` greedy decode steps, twice."""
+    cfg = arch.cfg
+    src = torch.as_tensor(rng.standard_normal((2, 64, cfg.d_model),
+                                              dtype=np.float32),
+                          device=CARD)
+    prompt = torch.as_tensor(np.stack([np.arange(9)] * 2) % cfg.vocab_size,
+                             device=CARD).to(torch.int32)
+    runs = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, caches = arch.prefill(params, {"src_embeds": src,
+                                                 "tokens": prompt},
+                                        prompt.shape[1] + n_new)
+            tok = torch.argmax(last[:, -1], -1)
+            out, finite = [tok.tolist()], bool(torch.isfinite(last).all())
+            for j in range(n_new - 1):
+                logits, caches = arch.decode_step(
+                    params, {"tokens": tok[:, None].to(torch.int32)},
+                    caches, prompt.shape[1] + j)
+                finite &= bool(torch.isfinite(logits).all())
+                tok = torch.argmax(logits[:, -1], -1)
+                out.append(tok.tolist())
+            runs.append(out)
+            wall = time.perf_counter() - t0
+    log("train", f"{cfg.name} served whole ({smi}): 2 x 64 source frames, "
+        f"a 9-token prompt, {n_new} greedy tokens in {wall:.3f} s; finite "
+        f"{finite}; greedy runs equal {runs[0] == runs[1]}; tokens "
+        f"{[list(t) for t in zip(*runs[0])]}")
+    if not finite or runs[0] != runs[1]:
+        raise AssertionError(f"serve {cfg.name}: {runs}")
+
+
+def phase_train(smi):
+    """Phase 18: the LM training path on the card -- the full-width
+    fixture hold, flash's backward at length, ``launch.train`` with a
+    resume, the timed arm, the full configs, no kernel launched."""
+    import gc
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    import lm_train_fixture as ltf
+    t_phase = time.perf_counter()
+    # -- the main path: counts to 0 just before, read just after ----------
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    tree = lm_fixture.param_tree(lm_fixture.config("float32"))
+    log("train", f"fixture weights (numpy seed {lm_fixture.SEED}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for dtype in ltf.DTYPES:
+        t0 = time.perf_counter()
+        r = ltf.check(torch.device(CARD), dtype, tree)
+        held = (f"gradient probes max |d| {r['grad_max_err']:.3e} of max|g| "
+                f"(tol {ltf.GRAD_TOL}), per-leaf float64 norms within "
+                f"{max(r['grad_leaf_norm_rel_err']):.2e}; grad_norm "
+                f"{r['grad_norm']} within "
+                f"{r['grad_norm_max_rel_err']:.2e} of the reference "
+                f"gradient's float64 norm (tol {ltf.GNORM_RTOL}; the "
+                f"reference's own float32 metric sits "
+                f"{r['ref_metric_vs_norm64_rel']:.2e} from it)")
+        if dtype == "float32":
+            held += (f", params after {ltf.STEPS} steps: {r['flips']} sign "
+                     f"flips ({r['flip_share']:.2e} of the probes, under "
+                     f"{ltf.FLIP_SHARE}; largest {r['param_max_err']:.3e}, "
+                     f"largest off flips {r['param_max_err_off_flips']:.3e}"
+                     f", flips' max |g| {r['flip_max_abs_grad']:.3e})")
+        else:
+            held += (f" (printed, not held), params beyond 1e-6: "
+                     f"{r['param_share_over_atol']:.2e} of the probes")
+        log("train", f"qwen1.5-0.5b full width, {dtype} compute, {ltf.STEPS}"
+            f" AdamW steps of {ltf.BATCH} x {ltf.SEQ} held to the "
+            f"reference's fixture ({smi}): losses {r['loss']} vs "
+            f"{r['want_loss']}, max |d| {r['loss_max_abs_err']:.3e} (rel "
+            f"{r['loss_max_rel_err']:.2e}); {held}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_backward_at_length(smi)
+    train_resume(smi)
+    train_arm(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_configs(smi)
+    no_launches("train", "the LM training path has no hand-written kernel")
+    log("train", f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -2707,6 +3029,7 @@ def main():
     phase_mesh(smi, ms_episode)
     phase_report(smi)
     phase_serve(smi)
+    phase_train(smi)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

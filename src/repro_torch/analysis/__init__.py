@@ -7,5 +7,5 @@ collective is a call made as the program runs.  So the port counts them
 where they happen, in ``core.distributed._all_reduce``
 (``core.distributed.collective_stats`` and ``count_collectives``), with
 ``hlo.py``'s ring costs.  ``analysis/flops.py`` counts the LM models'
-work and waits for their port.
+work (:mod:`repro_torch.analysis.flops`, a copy of the reference's).
 """

@@ -4,12 +4,13 @@ Hardware constants, one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates at the 700 W power limit):
 
     float32 outside the tensor cores   67 TFLOP/s
+    bfloat16 on the tensor cores      989 TFLOP/s (dense)
     HBM3 bandwidth                     3.35 TB/s
     NVLink 4                           450 GB/s per direction
 
 CRRM's work is float32 elementwise arithmetic, so the compute peak is the
 fp32 rate, not a tensor-core rate (the reference's 197e12 is a TPU's bf16
-rate).
+rate); the bf16 peak bounds the LM train step's model flops.
 
     compute term    = flops / (chips * peak)
     memory term     = bytes / (chips * HBM_bw)
@@ -31,6 +32,7 @@ import json
 import os
 
 PEAK_FLOPS = 67e12       # float32 outside the tensor cores, flop/s / card
+PEAK_FLOPS_BF16 = 989e12  # bfloat16 tensor cores, dense, flop/s / card
 HBM_BW = 3.35e12         # HBM3, bytes/s / card
 ICI_BW = 450e9           # NVLink 4, bytes/s per direction / card
 

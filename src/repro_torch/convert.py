@@ -19,7 +19,7 @@ from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.env.crrm_env import EnvObs, TopoEnvState
 from repro_torch.mac.engine import EpisodeState, EpisodeStatic
-from repro_torch.models import transformer
+from repro_torch.models.registry import make_arch
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.sim.radio import RadioState
 from repro_torch.tree import flatten
@@ -185,14 +185,14 @@ def _lm_tree(data, device):
 
 
 def lm_params(tree: dict, cfg, device) -> dict:
-    """The port's LM params (``models.transformer``) from the reference's
-    param tree as numpy arrays: the key paths and shapes of
-    ``init_params(cfg)`` (every ``layers`` leaf stacked on a leading
-    ``cfg.n_layers`` axis), each leaf's dtype kept (``param_dtype``, and
-    float32 where the reference keeps it: the router, ``dt_proj``,
-    ``dt_bias``, ``A_log``, ``D``)."""
-    want_keys, want = flatten(transformer.init_params(torch.Generator(), cfg,
-                                                      device="meta"))
+    """The port's LM params (``models.transformer``, or ``models.encdec``
+    for the encoder-decoder family) from the reference's param tree as
+    numpy arrays: the key paths and shapes of ``init_params(cfg)`` (every
+    layer leaf stacked on a leading layer axis), each leaf's dtype kept
+    (``param_dtype``, and float32 where the reference keeps it: the
+    router, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``)."""
+    want_keys, want = flatten(make_arch(cfg).init(torch.Generator(),
+                                                  device="meta"))
     keys, leaves = flatten(tree)
     if keys != want_keys:
         raise ValueError(f"not a {cfg.name} param tree: keys "
@@ -202,6 +202,28 @@ def lm_params(tree: dict, cfg, device) -> dict:
     if bad:
         raise ValueError(f"{cfg.name}: shapes differ at {bad}")
     return _lm_tree(tree, device)
+
+
+_OPT_KEYS = ({"mu", "nu", "count"},       # adamw
+             {"m", "count"},              # adafactor
+             {"mu", "count"})             # sgdm
+
+
+def train_state(tree: dict, cfg, device) -> dict:
+    """The port's train state ``{params, opt, step}`` (``train.step``)
+    from the reference's (numpy leaves): the params through
+    :func:`lm_params`, the optimizer state of ``train.optim``'s
+    ``adamw`` (``mu``/``nu``), ``adafactor`` (``m``: a ``{"vr", "vc"}``
+    or ``{"v"}`` dict per param) or ``sgdm`` (``mu``) in float32, its
+    ``count`` and the ``step`` int32."""
+    if set(tree) != {"params", "opt", "step"}:
+        raise ValueError(f"not a train state: keys {sorted(tree)}")
+    if set(tree["opt"]) not in _OPT_KEYS:
+        raise ValueError(f"not an optimizer state of train.optim: keys "
+                         f"{sorted(tree['opt'])}")
+    return {"params": lm_params(tree["params"], cfg, device),
+            "opt": _tree(tree["opt"], device),
+            "step": to_tensor(tree["step"], device)}
 
 
 def lm_cache(tree: dict, device) -> dict:

@@ -43,11 +43,11 @@ def _ssm_scan_chunks(make_chunk, outputs_of, S, Q, h0, xs_chunks):
         ci = tuple(x[c] for x in xs_chunks)
         a_q, b_q = make_chunk(ci)                 # (B, Q, ...) expanded
         a_q = a_q.expand_as(b_q)
-        h = torch.empty_like(b_q)
+        hs = []                   # stacked, not written in place: autograd
         for t in range(b_q.shape[1]):
             h_prev = a_q[:, t] * h_prev + b_q[:, t]
-            h[:, t] = h_prev
-        ys.append(outputs_of(h, ci))
+            hs.append(h_prev)
+        ys.append(outputs_of(torch.stack(hs, dim=1), ci))
     y = torch.stack(ys, dim=1)                    # (B, n_chunks, Q, ...)
     y = y.reshape((y.shape[0], -1) + y.shape[3:])
     return y[:, :S], h_prev

@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -25,23 +25,29 @@ class Arch:
 
 
 def make_arch(cfg: ModelConfig) -> Arch:
-    """The model functions of ``cfg``.  ``init(gen)`` draws the params on
-    ``gen``'s device; ``init_cache(bsz, max_len, device=)`` allocates."""
+    """The model functions of ``cfg``.  ``init(gen, device=None)`` draws
+    the params on ``gen``'s device (``device="meta"``: shapes and dtypes
+    only); ``init_cache(bsz, max_len, enc_len=None, device=None)``
+    allocates (``enc_len``: the encoder-decoder's cross K/V length,
+    ``max_len`` when not given; the other families ignore it)."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (models/encdec.py) is "
-            f"not ported yet; it comes with the slice after LM serving")
+        m = encdec
+        init_cache = lambda bsz, max_len, enc_len=None, device=None: \
+            encdec.init_cache(cfg, bsz, max_len, enc_len or max_len,
+                              device=device)
+    else:
+        m = transformer
+        init_cache = lambda bsz, max_len, enc_len=None, device=None: \
+            transformer.init_cache(cfg, bsz, max_len, device=device)
     return Arch(
         cfg=cfg,
-        init=lambda gen: transformer.init_params(gen, cfg),
-        forward=lambda p, b: transformer.forward(p, b, cfg),
-        forward_features=lambda p, b: transformer.forward_features(p, b, cfg),
-        head=lambda p, x: transformer.head(p, x, cfg),
-        prefill=lambda p, b, max_len: transformer.prefill(p, b, cfg, max_len),
-        decode_step=lambda p, b, c, pos: transformer.decode_step(
-            p, b, c, pos, cfg),
-        init_cache=lambda bsz, max_len, device=None: transformer.init_cache(
-            cfg, bsz, max_len, device=device),
+        init=lambda gen, device=None: m.init_params(gen, cfg, device=device),
+        forward=lambda p, b: m.forward(p, b, cfg),
+        forward_features=lambda p, b: m.forward_features(p, b, cfg),
+        head=lambda p, x: m.head(p, x, cfg),
+        prefill=lambda p, b, max_len: m.prefill(p, b, cfg, max_len),
+        decode_step=lambda p, b, c, pos: m.decode_step(p, b, c, pos, cfg),
+        init_cache=init_cache,
     )
 
 

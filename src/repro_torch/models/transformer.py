@@ -3,7 +3,11 @@
 The reference's structure (``repro.models.transformer``): layers are
 *stacked* (every leaf gains a leading L axis).  The reference iterates the
 stack with ``lax.scan`` under two-level remat; here a Python loop walks
-it, and nothing is rematerialised, since serving has no backward.  The
+it (:func:`scan_layers_remat`), each stacked leaf unbound once into its L
+layer slices, so that a backward stacks the L slices' gradients once.  In
+training (``cfg.remat`` and grad enabled) the loop is checkpointed at the
+reference's two levels, per group of layers and per layer
+(``torch.utils.checkpoint``, non-reentrant), which changes no value.  The
 reference's sharding hooks (``constrain``, ``gather_layer_params``,
 ``constrain_heads``) are identities on one device and are not called.
 
@@ -16,15 +20,17 @@ Three entry points:
 Caches are stacked over layers, as in the reference.  ``prefill`` writes
 the prompt's K/V at position 0 and ``decode_step`` writes each layer's
 slice of the stacked cache in place and returns the same dict: a caller
-that needs the cache from before a step copies it first.
+that needs the cache from before a step copies it first.  The serving
+path never runs under a checkpoint.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, unflatten
 
 
 def _cdt(cfg):
@@ -111,11 +117,53 @@ def param_bytes(params) -> int:
     return sum(x.numel() * x.element_size() for x in flatten(params)[1])
 
 
-def _index(tree, i):
-    """The i-th slice along the leading (layer) axis of every leaf: views."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+def unstack(tree, n: int) -> list:
+    """The ``n`` slices along the leading (layer) axis of every leaf, as
+    ``n`` trees of views (``torch.unbind``: one backward node per leaf)."""
+    _, leaves = flatten(tree)
+    per = [torch.unbind(x, 0) for x in leaves]
+    return [unflatten(tree, [p[i] for p in per]) for i in range(n)]
+
+
+def _auto_group(L: int) -> int:
+    """Largest divisor of L that is <= 8 (group size for two-level remat)."""
+    for g in range(min(8, L), 0, -1):
+        if L % g == 0:
+            return g
+    return 1
+
+
+def remat_on(cfg) -> bool:
+    """Checkpoint the layers: ``cfg.remat`` and a backward may follow."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward (no layer
+    draws random numbers, so no RNG state is stashed)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def scan_layers_remat(body, x, layer_params: list, cfg):
+    """``x = body(x, lp)`` for each layer's params in turn.  Under
+    :func:`remat_on`, the reference's two-level remat: a checkpoint around
+    each group of :func:`_auto_group` layers and one around each layer, so
+    only the group boundaries live across the whole stack."""
+    if not remat_on(cfg):
+        for lp in layer_params:
+            x = body(x, lp)
+        return x
+    g = _auto_group(len(layer_params))
+
+    def group(h, lps):
+        for lp in lps:
+            h = checkpoint(body, h, lp)
+        return h
+
+    for i in range(0, len(layer_params), g):
+        x = checkpoint(group, x, layer_params[i:i + g])
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -248,25 +296,33 @@ def _ssm_layer(lp, x, cfg, cdt, caches, li):
 
 
 def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
-    """Walk the stacked layers.  caches=None -> no cache IO; otherwise a
-    dict of stacked caches that is read and rewritten in place."""
+    """Walk the stacked layers.  caches=None -> training (no cache IO,
+    :func:`scan_layers_remat`); otherwise a dict of stacked caches that is
+    read and rewritten in place."""
     L = cfg.n_layers
+    lps = unstack(params["layers"], L)
     if cfg.family in ("dense", "moe", "vlm"):
         use_moe = cfg.family == "moe"
+        if caches is None:
+            return scan_layers_remat(
+                lambda h, lp: _attn_mlp_block(lp, h, cfg, cdt, positions,
+                                              use_moe=use_moe),
+                x, lps, cfg), None
         names = (["k", "v", "k_scale", "v_scale"]
-                 if caches is not None and "k_scale" in caches else ["k", "v"])
+                 if "k_scale" in caches else ["k", "v"])
         for li in range(L):
-            cache = (None if caches is None
-                     else tuple(caches[n][li] for n in names))
-            x = _attn_mlp_block(_index(params["layers"], li), x, cfg, cdt,
-                                positions, cache=cache, pos=pos,
-                                use_moe=use_moe)
+            x = _attn_mlp_block(lps[li], x, cfg, cdt, positions,
+                                cache=tuple(caches[n][li] for n in names),
+                                pos=pos, use_moe=use_moe)
         return x, caches
 
     if cfg.family == "ssm":
+        if caches is None:
+            return scan_layers_remat(
+                lambda h, lp: _ssm_block(lp, h, cfg, cdt)[0], x, lps,
+                cfg), None
         for li in range(L):
-            x = _ssm_layer(_index(params["layers"], li), x, cfg, cdt, caches,
-                           li)
+            x = _ssm_layer(lps[li], x, cfg, cdt, caches, li)
         return x, caches
 
     if cfg.family == "hybrid":
@@ -276,15 +332,26 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
         li = 0
         for g in range(n_groups):
             size = min(every, L - g * every)
+            if caches is None:
+                x = scan_layers_remat(
+                    lambda h, lp: _ssm_block(lp, h, cfg, cdt)[0], x,
+                    lps[li:li + size], cfg)
+                # shared attention block after each group (rematted: its
+                # flash residuals would otherwise persist per invocation)
+                shared = lambda h, h0, p: _shared_block(p, h, h0, cfg, cdt,
+                                                        positions)
+                x = (checkpoint(shared, x, x0, params["shared_attn"])
+                     if remat_on(cfg) else shared(x, x0,
+                                                  params["shared_attn"]))
+                li += size
+                continue
             for _ in range(size):
-                x = _ssm_layer(_index(params["layers"], li), x, cfg, cdt,
-                               caches, li)
+                x = _ssm_layer(lps[li], x, cfg, cdt, caches, li)
                 li += 1
             # shared attention block after each group
-            cache = (None if caches is None
-                     else (caches["k"][g], caches["v"][g]))
             x = _shared_block(params["shared_attn"], x, x0, cfg, cdt,
-                              positions, cache=cache, pos=pos)
+                              positions, cache=(caches["k"][g],
+                                                caches["v"][g]), pos=pos)
         return x, caches
 
     raise ValueError(cfg.family)

@@ -1,3 +1,4 @@
-"""Training-side utilities of the port: ``checkpoint`` (the CRRM part of
-``repro.train``) and ``optim`` (the AdamW of the RL stack); the LM
-scaffolding waits for its slice."""
+"""Training: ``checkpoint`` (atomic, keep-k, async, self-validating),
+``optim`` (AdamW, Adafactor, SGD with momentum, LR schedules), ``loss``,
+``data``, ``step`` and ``loop`` (the LM train path of ``repro.train`` on
+one device)."""

@@ -12,6 +12,8 @@ key path joins the keys on the way to it with ``/``: ``state/U``,
 (['a/0', 'a/2/0', 'b'], [2, 3, 1])
 >>> unflatten({"b": 0, "a": (0, None, [0])}, [20, 30, 10])
 {'a': (20, None, [30]), 'b': 10}
+>>> flatten_up_to({"w": 0, "b": 0}, {"w": {"v": 1}, "b": {"v": 2}})
+[{'v': 2}, {'v': 1}]
 """
 from __future__ import annotations
 
@@ -40,6 +42,19 @@ def flatten(tree, prefix: str = "") -> tuple[list[str], list]:
         keys += ks
         leaves += ls
     return keys, leaves
+
+
+def flatten_up_to(template, tree) -> list:
+    """The subtrees of ``tree`` at the leaves of ``template`` (whose
+    containers ``tree`` shares), in :func:`flatten`'s order: a tree of
+    per-leaf dicts against the leaves it mirrors."""
+    if template is None:
+        return []
+    kids = _children(template)
+    if kids is None:
+        return [tree]
+    sub = dict(_children(tree))
+    return [x for k, child in kids for x in flatten_up_to(child, sub[k])]
 
 
 def unflatten(tree, leaves):

@@ -14,7 +14,9 @@ pairwise-distance kernel vs ``pairwise_dist_plain``: rtol 1e-6 (the kernel
 rounds each product and sum as the plain version's separate kernels do).
 The LM serving path, which has no hand-written kernel, is held on the card
 to the port on the CPU (reduced configs) and to the reference's full-width
-fixture (``tests/lm_fixture.py``).
+fixture (``tests/lm_fixture.py``); LM training to the reference's
+full-width train fixture (``tests/lm_train_fixture.py``), and flash's
+memory-exact backward to autograd through the plain forward.
 """
 import numpy as np
 import pytest
@@ -809,3 +811,44 @@ def test_serve_engine_defaults_to_the_card(cuda):
     assert eng.params["lm_head"]["kernel"].is_cuda
     eng.submit(np.arange(5), max_new_tokens=4)
     assert len(eng.run()["results"][0]) == 4
+
+
+# -- LM training ----------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_full_width_training_holds_the_reference_fixture(cuda, dtype,
+                                                            qwen_full_tree):
+    """Three AdamW steps of qwen1.5-0.5b at full width, held to the
+    reference's run (``tests/lm_train_fixture.py``'s contract: float32
+    losses rtol 1e-5, gradient probes within 1e-4 of their leaf's max|g|,
+    params within 1e-6 off counted sign flips; bfloat16 losses within
+    2e-2)."""
+    import lm_train_fixture
+    res = lm_train_fixture.check(cuda, dtype, qwen_full_tree)
+    assert len(res["loss"]) == lm_train_fixture.STEPS
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_on_the_card_matches_autograd(cuda, causal):
+    """The memory-exact backward against autograd through the plain
+    forward, on the card, at several blocks with GQA and padding (float32
+    within 1e-5 of the largest gradient element)."""
+    from repro_torch.models import flash
+    gen = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn(2, 300, 8, 64, device=cuda, generator=gen)
+    k = torch.randn(2, 300, 4, 64, device=cuda, generator=gen)
+    v = torch.randn(2, 300, 4, 64, device=cuda, generator=gen)
+    do = torch.randn(2, 300, 8, 64, device=cuda, generator=gen)
+    grads = []
+    for fn in (flash.flash_attention, flash.flash_attention_naive_grad):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs, causal=causal, chunk_q=64, chunk_kv=128)
+        grads.append(torch.autograd.grad((out * do).sum(), xs))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_train_step_defaults_to_the_card(cuda):
+    from repro_torch.launch import train as launch_train
+    hist = launch_train.main(["--reduced", "--steps", "3", "--batch", "2",
+                              "--seq-len", "16"])
+    assert len(hist) == 1 and np.isfinite(hist[0])

@@ -2,7 +2,7 @@
 
 An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``,
 of the fixture loaders it reads (``tests/relax_fixture.py``,
-``tests/lm_fixture.py``) and of the mesh
+``tests/lm_fixture.py``, ``tests/lm_train_fixture.py``) and of the mesh
 ranks' module (``tests/torch_mesh.py``) finds no import of ``jax``,
 ``repro`` or ``msgpack``; a
 fresh interpreter that imports every port module has not loaded ``jax``; the
@@ -26,6 +26,7 @@ def port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "relax_fixture.py",
                                          ROOT / "tests" / "lm_fixture.py",
+                                         ROOT / "tests" / "lm_train_fixture.py",
                                          ROOT / "tests" / "torch_mesh.py"]
 
 
@@ -56,7 +57,10 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.models.mamba", "repro_torch.models.transformer",
               "repro_torch.models.registry", "repro_torch.serve.engine",
               "repro_torch.launch.serve", "repro_torch.configs.qwen1p5_0p5b",
-              "repro_torch.configs.zamba2_1p2b"):
+              "repro_torch.configs.zamba2_1p2b", "repro_torch.models.encdec",
+              "repro_torch.train.loss", "repro_torch.train.data",
+              "repro_torch.train.step", "repro_torch.train.loop",
+              "repro_torch.launch.train", "repro_torch.analysis.flops"):
         assert m in names, m
 
 
@@ -112,6 +116,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.serve.engine import ServeEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(make_arch(get_config("qwen1.5-0.5b", reduced=True)))
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"

@@ -82,9 +82,15 @@ def test_shape_applicability_is_the_reference_s(arch_id):
 
 
 def test_encdec_waits_for_its_slice():
+    """The encoder-decoder family's slice has come: ``make_arch`` builds
+    it (``tests/test_torch_lm_encdec.py`` holds it to the reference)."""
     cfg = t_configs.get_config("seamless-m4t-large-v2", reduced=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        t_registry.make_arch(cfg)
+    arch = t_registry.make_arch(cfg)
+    tree = arch.init(torch.Generator(), device="meta")
+    assert set(tree) == {"encoder", "enc_norm", "decoder", "final_norm",
+                         "embed", "lm_head"}
+    assert set(arch.init_cache(2, 8, 5, device="meta")) == {"k", "v", "xk",
+                                                            "xv"}
 
 
 # -- layers --------------------------------------------------------------------
