@@ -156,14 +156,30 @@ Phases, each printing its own lines:
               arm (ms per step, tok/s, peak, the model-flops bound, one
               profiled step); one step of each other config whose AdamW
               state fits the card, the rest reckoned on the meta device;
-              seamless-m4t-large-v2 served whole.
+              seamless-m4t-large-v2 served whole;
+19. mesh_lm -- the LM meshes (``repro_torch.parallel``, ZeRO-3 training
+              through ``train.loop.train(mesh=)``): qwen1.5-0.5b at full
+              width on the seeded weights, 3 AdamW steps of 2 x 128 on a
+              1-rank NCCL (1, 1) mesh in float32 and bfloat16, held to the
+              reference's *sharded* run (``tests/lm_mesh_fixture.py``:
+              losses rtol 1e-5 / 2e-2), the bfloat16 run beside the port's
+              unsharded run (bit for bit or not, in deterministic mode:
+              printed); then
+              2 gloo ranks sharing the card with CUDA tensors on (2, 1)
+              and (1, 2) meshes in float32, losses within rtol 1e-5 of the
+              1-rank run, per rank the peak memory beside the reckoned
+              per-rank state, collective calls and wire bytes per step and
+              ms per step (a record: the ranks share one card); then
+              ``launch.dryrun --arch qwen1.5-0.5b --all --both-meshes``:
+              each cell's reckoned GiB per device and analytic flops, and
+              its one-device reckoning against the card's memory.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo, each mesh run in its own rank, the report, serve and train) sets
-every kernel's launch count to 0 just before it and reads the counts just
-after; phases 13, 14, 17 and 18 launch neither kernel (the relaxed chain
-is the torch one: fused_sinr has no backward; the LM path has no
-hand-written kernel) and fail if one launched.  The line before the last
+ppo, each mesh run in its own rank, the report, serve, train and mesh_lm)
+sets every kernel's launch count to 0 just before it and reads the counts
+just after; phases 13, 14, 17, 18 and 19 launch neither kernel (the
+relaxed chain is the torch one: fused_sinr has no backward; the LM path
+has no hand-written kernel) and fail if one launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
 disagreement raises, and the script exits non-zero.  Without a CUDA device
 it exits non-zero before printing any result.
@@ -2774,14 +2790,17 @@ def flash_backward_at_length(smi):
 
 def train_resume(smi):
     """``launch.train``'s entry point at full width for 30 steps with a
-    checkpoint; then the loop resumes it to 40 and runs an uninterrupted
-    40 with the launcher's optimizer for ``--steps 30`` (its schedule is
-    tied to ``--steps``), the two step-40 states held to the reference
-    test's contract, in deterministic mode."""
+    checkpoint (on its default 1-rank mesh); then the loop resumes it to
+    40 and runs an uninterrupted 40 on a 1-rank mesh too, with the
+    launcher's optimizer for ``--steps 30`` (its schedule is tied to
+    ``--steps``), the two step-40 states held to the reference test's
+    contract, in deterministic mode."""
     import shutil
     from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import make_arch
+    from repro_torch.parallel.mesh import make_host_mesh
     from repro_torch.train import optim
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.loop import train
@@ -2798,13 +2817,16 @@ def train_resume(smi):
     arch = make_arch(cfg)
     opt = optim.adamw(optim.warmup_cosine(1e-3, max(30 // 20, 5), 30))
     data = SyntheticLM(cfg.vocab_size, 8, 64, seed=0)
-    resumed, h40 = deterministic(lambda: train(
-        arch, opt, None, data, steps=40, ckpt_dir=str(d), ckpt_every=100,
-        device=CARD))
-    t2 = time.perf_counter()
-    full, hfull = deterministic(lambda: train(arch, opt, None, data,
-                                              steps=40, device=CARD))
-    t3 = time.perf_counter()
+    # the launcher trains on a 1-rank mesh: the loop resumes on one too
+    with dryrun.one_rank_group(torch.device(CARD)):
+        mesh = make_host_mesh(1, 1, device=CARD)
+        resumed, h40 = deterministic(lambda: train(
+            arch, opt, mesh, data, steps=40, ckpt_dir=str(d),
+            ckpt_every=100))
+        t2 = time.perf_counter()
+        full, hfull = deterministic(lambda: train(arch, opt, mesh, data,
+                                                  steps=40))
+        t3 = time.perf_counter()
     pairs = list(zip(flatten(resumed)[1], flatten(full)[1]))
     bitwise = all(torch.equal(a, b) for a, b in pairs)
     worst = max(float((a.float() - b.float()).abs().sub(
@@ -3011,6 +3033,191 @@ def phase_train(smi):
     log("train", f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _losses_and_ms(fn):
+    """``(fn()'s result, ms per logged step)``: the loop's CSV captured
+    (and echoed), each step's ms from its ``tokens_per_s`` column."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    rows = [l.split(",") for l in buf.getvalue().splitlines()
+            if l[:1].isdigit()]
+    return out, rows
+
+
+def mesh_lm_rank(job):
+    """One rank of phase 19's gloo runs: qwen1.5-0.5b at full width on the
+    seeded weights in float32 on each mesh of ``job["shapes"]`` (all the
+    ranks), through ``train.loop.train(mesh=)``."""
+    import gc
+    import torch.distributed as tdist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    import lm_mesh_fixture as lmf
+    import lm_train_fixture as ltf
+    from repro_torch.core import distributed as D
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import state_specs
+    zero_counts()
+    cfg = lm_fixture.config("float32")
+    tree = lm_fixture.param_tree(cfg)
+    tokens = ltf.BATCH * ltf.SEQ
+    out = []
+    for shape in job["shapes"]:
+        mesh = D.make_mesh(shape, ("data", "model"), "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with D.count_collectives() as c:
+            t0 = time.perf_counter()
+            (losses, state), rows = _losses_and_ms(
+                lambda: lmf.run(cfg, tree, mesh))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        shapes, specs = state_specs(lmf.seeded_arch(cfg, tree),
+                                    ltf.optimizer(), mesh)
+        out.append({"shape": tuple(shape), "rank": tdist.get_rank(),
+                    "coord": dict(mesh.coord), "losses": losses.tolist(),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "held": torch.cuda.memory_allocated(),
+                    "reckoned": shd.per_device_bytes(shapes, specs, mesh),
+                    "counts": dict(c.counts), "wire": c.total_wire_bytes,
+                    "ms": [tokens / float(r[5]) * 1e3 for r in rows],
+                    "wall": wall, "launches": launch_counts()})
+        del state
+    return out
+
+
+MESH_JOBS["lm_mesh"] = mesh_lm_rank
+
+
+def mesh_lm_dryrun(smi):
+    """``launch.dryrun --arch qwen1.5-0.5b --all --both-meshes``: each
+    cell's reckoned GiB per device and analytic flops, and whether its
+    one-device reckoning fits the card."""
+    from repro_torch.launch import dryrun
+    out_dir = Path(__file__).resolve().parent / "artifacts" / "dryrun"
+    total = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    dryrun.main(["--arch", "qwen1.5-0.5b", "--all", "--both-meshes",
+                 "--out", str(out_dir), "--force"])
+    fits = []
+    for mesh_name in ("pod", "multipod"):
+        for path in sorted((out_dir / mesh_name / "qwen1.5-0.5b").glob(
+                "*.json")):
+            art = json.loads(path.read_text())
+            if art.get("skipped"):
+                log("mesh_lm", f"{mesh_name}/{path.stem}: skipped "
+                    f"({art['reason'][:40]})")
+                continue
+            per = art["reckoned_bytes_per_device"]
+            one = art["reckoned_bytes_one_device"]
+            fits.append((path.stem, one["total"] <= total))
+            log("mesh_lm", f"{mesh_name}/{path.stem} ({art['strategy']}"
+                f", {art['n_devices']} devices): reckoned "
+                f"{per['total'] / 2**30:.4f} GiB/device "
+                f"({', '.join(f'{k} {v / 2**30:.4f}' for k, v in per.items() if k != 'total')}); "
+                f"analytic flops {art['analytic_flops']:.4e} "
+                f"(fwd {art['analytic_flops_fwd']:.4e}), model flops "
+                f"{art['model_flops']:.4e}, analytic bytes "
+                f"{art['analytic_bytes']:.4e}; on one device "
+                f"{one['total'] / 2**30:.2f} GiB reckoned against the "
+                f"card's {total / 2**30:.2f} GiB ({smi}): "
+                f"{'fits' if one['total'] <= total else 'does not fit'}")
+    log("mesh_lm", f"dry-run of the qwen1.5-0.5b cells in "
+        f"{time.perf_counter() - t0:.1f} s; cells whose one-device "
+        f"reckoning fits the card: {[n for n, ok in fits if ok] or 'none'}")
+
+
+def phase_mesh_lm(smi):
+    """Phase 19: the LM meshes -- ZeRO-3 training through
+    ``train.loop.train(mesh=)`` on a 1-rank NCCL mesh held to the
+    reference's sharded fixture, 2 gloo ranks sharing the card, the LM
+    dry-run over the named meshes; no kernel launched."""
+    import gc
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    import lm_mesh_fixture as lmf
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.tree import flatten
+    t_phase = time.perf_counter()
+    # -- the main path: counts to 0 just before, read just after ----------
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    tree = lm_fixture.param_tree(lm_fixture.config("float32"))
+    lmf.check_weights(tree)
+    log("mesh_lm", f"fixture weights built in {time.perf_counter() - t0:.1f}"
+        f" s")
+    runs = {}
+    with dryrun.one_rank_group(torch.device(CARD)):
+        mesh = make_host_mesh(1, 1, device=CARD)
+        for dtype in lmf.DTYPES:
+            cfg = lm_fixture.config(dtype)
+            fresh_peak()
+            t0 = time.perf_counter()
+            (losses, state), rows = _losses_and_ms(lambda: deterministic(
+                lambda: lmf.run(cfg, tree, mesh)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r = lmf.hold(losses, dtype)
+            runs[dtype] = (losses, state)
+            log("mesh_lm", f"qwen1.5-0.5b full width on a 1-rank NCCL "
+                f"(1, 1) mesh, {dtype} compute, {lmf.STEPS} AdamW steps of "
+                f"2 x 128 through train(mesh=) ({smi}): losses {r['loss']} "
+                f"vs the reference's sharded {r['want_loss']}, max |d| "
+                f"{r['loss_max_abs_err']:.3e} (rel "
+                f"{r['loss_max_rel_err']:.2e}); lr and grad_norm per step "
+                f"{[(row[4], row[3]) for row in rows]}; ms per step "
+                f"{[round(2 * 128 / float(row[5]) * 1e3, 1) for row in rows]}"
+                f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB; {wall:.1f} s")
+    # on bfloat16 compute the cast reaches the matmuls' weights as a no-op;
+    # the float32 norm scales and every cast leaf's gradient are rounded
+    cfg = lm_fixture.config("bfloat16")
+    plain, pstate = deterministic(lambda: lmf.run(cfg, tree, None,
+                                                  device=CARD))
+    sharded, sstate = runs["bfloat16"]
+    same_first = plain[:1].tobytes() == sharded[:1].tobytes()
+    same = (plain.tobytes() == sharded.tobytes() and all(
+        torch.equal(a, b) for a, b in zip(flatten(sstate)[1],
+                                          flatten(pstate)[1])))
+    log("mesh_lm", f"bfloat16, deterministic mode: the 1-rank sharded run "
+        f"vs the port's unsharded run: step-1 loss bit for bit "
+        f"{same_first}; the whole run (losses and every state leaf) bit for "
+        f"bit {same}; unsharded losses {plain.tolist()}, sharded "
+        f"{sharded.tolist()}")
+    f32 = runs["float32"][0]
+    del runs, sstate, pstate, state, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 2 gloo ranks sharing the card ------------------------------------
+    t0 = time.perf_counter()
+    outs = spawn_ranks(2, "gloo", [{"name": "lm_mesh",
+                                    "shapes": [(2, 1), (1, 2)]}])
+    for rank_out in outs:
+        for r in rank_out[0]:
+            err = float(np.abs(np.array(r["losses"]) / f32 - 1).max())
+            log("mesh_lm", f"gloo {r['shape']} rank {r['rank']} "
+                f"{r['coord']} float32 ({smi}): losses {r['losses']} "
+                f"(rel to the 1-rank run {err:.2e}); peak "
+                f"{r['peak'] / 2**30:.3f} GiB beside the reckoned per-rank "
+                f"state {r['reckoned'] / 2**30:.3f} GiB (held after "
+                f"{r['held'] / 2**30:.3f} GiB); collectives per step "
+                f"{ {k: v / lmf.STEPS for k, v in r['counts'].items()} }, "
+                f"wire {r['wire'] / lmf.STEPS / 2**20:.1f} MiB per step; "
+                f"ms per step {[round(x, 1) for x in r['ms']]} (ranks share "
+                f"the card: a record); launches {r['launches']}")
+            if err > 1e-5 or any(r["launches"].values()):
+                raise AssertionError(f"mesh_lm gloo {r['shape']}: {r}")
+    log("mesh_lm", f"gloo ranks in {time.perf_counter() - t0:.1f} s")
+    mesh_lm_dryrun(smi)
+    no_launches("mesh_lm", "the LM mesh path has no hand-written kernel")
+    log("mesh_lm", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -3030,6 +3237,7 @@ def main():
     phase_report(smi)
     phase_serve(smi)
     phase_train(smi)
+    phase_mesh_lm(smi)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

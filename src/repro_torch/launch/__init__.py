@@ -1,4 +1,5 @@
 """Launchers of the port: ``dryrun`` runs the crrm-ppp cells on one
-device; ``serve`` serves an LM through ``serve.engine.ServeEngine``.  The
-LM training and mesh launchers (``train``, ``mesh``) wait for the LM
-training slice."""
+device and reckons the LM cells over the named meshes; ``serve`` serves an
+LM through ``serve.engine.ServeEngine``; ``train`` trains one through
+``train.loop.train`` on a mesh of the default process group; ``mesh``
+names the production meshes."""

@@ -1,13 +1,14 @@
-"""Dry-run cells of the paper's engine: the crrm-ppp networks on one device.
+"""Dry-run cells: the crrm-ppp networks on one device, the LM cells
+reckoned over the named meshes.
 
-The port of the CRRM half of ``repro.launch.dryrun``.  The reference
-lowers and compiles each cell for a TPU pod and runs nothing.  Here each
-cell runs once, whole, through the step makers of
+The port of ``repro.launch.dryrun``.  The reference lowers and compiles
+each cell for a TPU pod and runs nothing.
+
+**crrm-ppp.**  Each cell runs once, whole, through the step makers of
 :mod:`repro_torch.core.distributed` on a mesh over the default process
 group (a 1-rank NCCL group on the card, gloo on the CPU), and its artifact
-records what the run measured beside the reference's analytic counts.
-
-For each cell this writes ``<out>/<mesh>/crrm-ppp/<shape>.json`` with
+records what the run measured beside the reference's analytic counts:
+``<out>/<device>-1x1/crrm-ppp/<shape>.json`` with
 ``analytic_flops``/``analytic_bytes`` (the reference's formulas,
 :func:`analytic_counts`), ``variant``, ``n_devices``,
 ``collective_wire_bytes`` (counted by ``core.distributed``),
@@ -19,10 +20,27 @@ cell tile of the streamed variants is chosen to fit the device
 step makers' default.  A cell that cannot fit raises with its reckoned
 bytes.
 
+**LM cells** (:func:`run_lm_cell`).  The named meshes (pod 16x16,
+multipod 2x16x16) do not fit one host, so nothing runs: each cell's
+artifact ``<out>/<mesh>/<arch>/<shape>.json`` holds the reference's
+analytic fields -- ``param_counts``, ``analytic_flops``,
+``analytic_flops_fwd``, ``analytic_bytes`` with its breakdown,
+``model_flops`` -- the strategy and accumulation the reference's
+``_lower_cell`` picks, and the per-device bytes of the cell's state
+reckoned from the sharding rules' spec trees over the mesh
+(``reckoned_bytes_per_device``: train cells the params and Adafactor's
+state, serve cells the bf16 params and the cache; the same over a
+(1, 1) mesh in ``reckoned_bytes_one_device``, with a floor under what a
+train cell's step adds).  The reference's HLO
+fields (``hlo_flops``, ``collective_*``, ``memory_analysis``) have no
+source without a compiler and are absent, named in ``absent``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch crrm-ppp
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch crrm-ppp \\
       --shape net_256k --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b \\
+      --all --both-meshes
 """
 from __future__ import annotations
 
@@ -40,7 +58,7 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.analysis import roofline
-from repro_torch.configs import crrm_ppp
+from repro_torch.configs import LM_ARCH_IDS, crrm_ppp, get_config
 from repro_torch.core import distributed as D
 from repro_torch.sim.pathloss import make_pathloss
 
@@ -296,6 +314,192 @@ def one_rank_group(device):
             dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# the LM cells: reckoned over the named meshes
+# ---------------------------------------------------------------------------
+#: the reference's HLO fields, which need its compiler
+ABSENT = ("hlo_flops", "hlo_flops_per_device", "hlo_bytes",
+          "hlo_bytes_per_device", "collective_wire_bytes",
+          "collective_counts", "collective_bytes_by_kind",
+          "memory_analysis", "compile_seconds")
+
+
+def _param_counts(cfg) -> dict:
+    """Total/active/non-embedding parameter counts from the meta init."""
+    from repro_torch.models.registry import make_arch
+    from repro_torch.tree import flatten
+    keys, leaves = flatten(make_arch(cfg).init(torch.Generator(),
+                                               device="meta"))
+    total = emb = routed = 0
+    for key, leaf in zip(keys, leaves):
+        names = key.split("/")
+        n = int(np.prod(leaf.shape))
+        total += n
+        if names[-1] in ("embedding", "kernel"):
+            emb += n
+        if ("moe" in names and names[-1] in ("wi_gate", "wi_up", "wo")
+                and len(leaf.shape) >= 3):
+            routed += n
+    n_body = total - emb
+    if cfg.n_experts:
+        active = (n_body - routed
+                  + routed * cfg.n_experts_per_token / cfg.n_experts)
+    else:
+        active = n_body
+    return {"total": total, "non_embedding": n_body, "active": active}
+
+
+def _model_flops(cfg, shape_name: str) -> float:
+    from repro_torch.models.registry import SHAPES
+    sh = SHAPES[shape_name]
+    tokens = sh["global_batch"] * (1 if sh["kind"] == "decode"
+                                   else sh["seq_len"])
+    n_active = _param_counts(cfg)["active"]
+    if sh["kind"] == "train":
+        return 6.0 * n_active * tokens
+    return 2.0 * n_active * tokens   # fwd-only (prefill / decode)
+
+
+def cell_plan(cfg, shape_name: str, mesh) -> dict:
+    """The reference's ``_lower_cell`` choices: the strategy ("dp" --
+    ZeRO-3 over every axis -- for train cells of <= 8B non-MoE,
+    non-hybrid archs whose global batch covers the mesh, else "2d") and,
+    for train cells, the microbatch accumulation."""
+    from repro_torch.models.registry import SHAPES
+    from repro_torch.parallel.mesh import mesh_size
+    sh = SHAPES[shape_name]
+    n_total = _param_counts(cfg)["total"]
+    use_dp = (sh["kind"] == "train" and cfg.family not in ("moe", "hybrid")
+              and n_total <= 8e9
+              and sh["global_batch"] % mesh_size(mesh) == 0)
+    plan = {"strategy": "dp" if use_dp else "2d"}
+    if sh["kind"] == "train":
+        plan["accum_steps"] = 4 if cfg.d_ff >= 24000 else (
+            2 if (cfg.d_model >= 8192 or cfg.family in ("hybrid", "moe"))
+            else 1)
+    return plan
+
+
+def reckon_cell_bytes(cfg, shape_name: str, mesh, strategy: str) -> dict:
+    """Per-device bytes of a cell's state under ``strategy`` on ``mesh``,
+    from the rules' spec trees: train cells the params and the state of
+    ``adafactor`` (the reference's dry-run optimizer), serve cells the
+    params in bfloat16 and the cache (a prefill writes one of the cell's
+    length).  Meta tensors: nothing is allocated."""
+    import dataclasses
+
+    from repro_torch.models.registry import SHAPES, input_specs, make_arch
+    from repro_torch.parallel import mesh as M
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import optim
+    sh = SHAPES[shape_name]
+    prev = M.get_strategy()
+    M.set_strategy(strategy)
+    try:
+        if sh["kind"] == "train":
+            params = make_arch(cfg).init(torch.Generator(), device="meta")
+            opt = optim.adafactor(optim.constant_lr(1e-4)).init(params)
+            out = {"params": shd.per_device_bytes(
+                params, shd.infer_param_specs(params, mesh), mesh),
+                "opt": shd.per_device_bytes(
+                    opt, shd.infer_param_specs(opt, mesh), mesh)}
+        else:
+            cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+            arch = make_arch(cfg)
+            params = arch.init(torch.Generator(), device="meta")
+            _, cache = input_specs(cfg, shape_name)
+            if cache is None:       # prefill: the cache it writes
+                S, B = sh["seq_len"], sh["global_batch"]
+                cache = arch.init_cache(B, S, S, device="meta")
+            out = {"params": shd.per_device_bytes(
+                params, shd.infer_param_specs(params, mesh), mesh),
+                "cache": shd.per_device_bytes(
+                    cache, shd.cache_specs(cfg, cache, mesh), mesh)}
+    finally:
+        M.set_strategy(prev)
+    out["total"] = sum(out.values())
+    return out
+
+
+def one_device_bytes(cfg, shape_name: str, strategy: str) -> dict:
+    """:func:`reckon_cell_bytes` over a (1, 1) mesh, and for a train cell
+    a floor under what its step adds (``step_floor``): the gradients (one
+    float32 per param), the chunked CE's one live float32 logits chunk
+    (B x min(512, S) x vocab) and one residual stream (B x S x d_model in
+    the compute dtype)."""
+    from repro_torch.models.registry import SHAPES
+    from repro_torch.parallel.mesh import ShapeMesh
+    out = reckon_cell_bytes(cfg, shape_name,
+                            ShapeMesh((1, 1), ("data", "model")), strategy)
+    sh = SHAPES[shape_name]
+    if sh["kind"] == "train":
+        B, S = sh["global_batch"], sh["seq_len"]
+        cdt = 2 if cfg.dtype == "bfloat16" else 4
+        out["step_floor"] = (4 * _param_counts(cfg)["total"]
+                             + B * min(512, S) * cfg.vocab_size * 4
+                             + B * S * cfg.d_model * cdt)
+        out["total"] += out["step_floor"]
+    return out
+
+
+def run_lm_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
+                out_dir: str, force: bool = False) -> dict:
+    """Reckon one LM cell on ``mesh`` (a named ``ShapeMesh``) and write
+    its artifact (see the module docstring)."""
+    from repro_torch.analysis.flops import step_bytes, step_flops
+    from repro_torch.models.registry import shape_applicable
+    from repro_torch.parallel.mesh import mesh_size
+    os.makedirs(f"{out_dir}/{mesh_name}/{arch_id}", exist_ok=True)
+    path = f"{out_dir}/{mesh_name}/{arch_id}/{shape_name}.json"
+    if os.path.exists(path) and not force:
+        with open(path) as f:
+            return json.load(f)
+    cfg = get_config(arch_id)
+    ok, reason = shape_applicable(cfg, shape_name)
+    if not ok:
+        art = {"skipped": True, "reason": reason, "arch": arch_id,
+               "shape": shape_name, "mesh": mesh_name}
+    else:
+        counts = _param_counts(cfg)
+        fl = step_flops(cfg, shape_name)
+        by = step_bytes(cfg, shape_name, counts["total"])
+        plan = cell_plan(cfg, shape_name, mesh)
+        art = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
+               "n_devices": mesh_size(mesh), **plan,
+               "param_counts": counts, "analytic_flops": fl["total"],
+               "analytic_flops_fwd": fl["fwd"],
+               "analytic_bytes": by["total"],
+               "analytic_bytes_breakdown": by,
+               "model_flops": _model_flops(cfg, shape_name),
+               "reckoned_bytes_per_device": reckon_cell_bytes(
+                   cfg, shape_name, mesh, plan["strategy"]),
+               "reckoned_bytes_one_device": one_device_bytes(
+                   cfg, shape_name, plan["strategy"]),
+               "absent": {"fields": list(ABSENT),
+                          "why": "the reference reads them from the "
+                                 "compiled HLO (analysis/hlo.py); the "
+                                 "port compiles nothing"}}
+    with open(path, "w") as f:
+        json.dump(art, f, indent=1, default=float)
+    return art
+
+
+def _report_lm(arch_id, shape, mesh_name, art, t0):
+    if art.get("skipped"):
+        print(f"[dryrun] {mesh_name}/{arch_id}/{shape}: SKIP "
+              f"({art['reason'][:60]})", flush=True)
+        return
+    per, one = (art["reckoned_bytes_per_device"]["total"],
+                art["reckoned_bytes_one_device"]["total"])
+    print(f"[dryrun] {mesh_name}/{arch_id}/{shape}: OK "
+          f"strategy={art['strategy']} "
+          f"flops={art['analytic_flops']:.3e} "
+          f"model_flops={art['model_flops']:.3e} "
+          f"bytes={art['analytic_bytes']:.3e} "
+          f"reckoned={per / 2**30:.3f} GiB/dev ({one / 2**30:.1f} GiB on "
+          f"one device) wall={time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def _report(shape, mesh_name, art, t0):
     peak = art.get("peak_bytes_per_device")
     dms = art.get("device_ms")
@@ -313,17 +517,48 @@ def _report(shape, mesh_name, art, t0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="run the crrm-ppp cells once on one device")
-    # the LM cells (the reference's run_lm_cell) are not ported yet
-    ap.add_argument("--arch", default="crrm-ppp", choices=[crrm_ppp.ARCH_ID])
-    ap.add_argument("--shape", default=None,
-                    choices=sorted(crrm_ppp.SHAPES))
+        description="run the crrm-ppp cells once on one device; reckon the "
+                    "LM cells over the named meshes")
+    ap.add_argument("--arch", default=None,
+                    choices=LM_ARCH_IDS + [crrm_ppp.ARCH_ID])
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="pod",
+                    choices=["pod", "multipod", "tiny", "tinypod"],
+                    help="the named mesh of the LM cells")
+    ap.add_argument("--all", action="store_true",
+                    help="every (arch x shape) on --mesh (or both prod "
+                         "meshes with --both-meshes)")
+    ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device of the crrm-ppp cells (default: the "
+                         "card)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    archs = ([args.arch] if args.arch else
+             (LM_ARCH_IDS + [crrm_ppp.ARCH_ID] if args.all else []))
+    for arch_id in archs:
+        if arch_id == crrm_ppp.ARCH_ID:
+            _crrm_cells(args)
+        else:
+            _lm_cells(arch_id, args)
+
+
+def _lm_cells(arch_id, args):
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models.registry import SHAPES
+    meshes = ["pod", "multipod"] if args.both_meshes else [args.mesh]
+    for mesh_name in meshes:
+        mesh = make_named_mesh(mesh_name)
+        for s in [args.shape] if args.shape else list(SHAPES):
+            t0 = time.perf_counter()
+            art = run_lm_cell(arch_id, s, mesh, mesh_name, args.out,
+                              args.force)
+            _report_lm(arch_id, s, mesh_name, art, t0)
+
+
+def _crrm_cells(args):
     dev = resolve_device(args.device)
     mesh_name = f"{dev.type}-1x1"
     shapes = [args.shape] if args.shape else list(crrm_ppp.SHAPES)

@@ -1,4 +1,5 @@
 """The LM scaffolding's models in PyTorch: ``config`` (``ModelConfig``),
-``layers``, ``attention``, ``flash`` (forward), ``moe``, ``mamba``,
-``transformer`` (dense / MoE / SSM / hybrid / VLM) and ``registry``
-(``make_arch``).  The encoder-decoder family is not ported yet."""
+``layers``, ``attention``, ``flash`` (with its memory-exact backward),
+``moe``, ``mamba``, ``transformer`` (dense / MoE / SSM / hybrid / VLM),
+``encdec`` (the encoder-decoder family) and ``registry`` (``make_arch``,
+``input_specs``)."""

@@ -68,7 +68,8 @@ def _repeat_kv(k, n_heads):
 
 def chunked_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_kv: int,
                       q_offset: int = 0):
-    """Flash attention (``repro_torch.models.flash``, forward only)."""
+    """Flash attention with its memory-exact backward
+    (``repro_torch.models.flash``)."""
     from repro_torch.models.flash import flash_attention
     return flash_attention(q, k, v, causal=causal, chunk_q=chunk_q,
                            chunk_kv=chunk_kv, q_offset=q_offset)

@@ -4,7 +4,8 @@ The port of ``repro.models.encdec``.  The modality frontend is a stub, as
 in the reference: ``batch["src_embeds"]`` carries precomputed speech-frame
 embeddings (b, s_src, d_model).  The bidirectional encoder and the causal
 text decoder with cross-attention are stacked layers walked by
-``transformer.scan_layers_remat`` (checkpointed in training).  Decode
+``transformer.scan_layers_remat`` (checkpointed in training), with the
+reference's sharding hooks at its places.  Decode
 caches split into self-attention caches (``k``, ``v``: written in place
 by each step) and cross-attention K/V (``xk``, ``xv``: computed once from
 the encoder output by ``prefill``; decode steps never touch them).  The
@@ -19,6 +20,7 @@ from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_cdt, _pdt, _write,
                                             scan_layers_remat, unstack)
+from repro_torch.parallel.act_sharding import constrain, gather_layer_params
 
 
 def _enc_layers_init(gen, cfg, pdt, dev):
@@ -81,6 +83,8 @@ def encode(params, src_embeds, cfg: ModelConfig):
     positions = _positions(x)
 
     def body(h, lp):
+        h = constrain(h)
+        lp = gather_layer_params(lp)
         z = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q, k, v = attention.qkv_project(lp["attn"], z, z, cfg, cdt)
         q = layers.apply_rope(q, positions, cfg.rope_theta)
@@ -138,9 +142,13 @@ def forward_features(params, batch, cfg: ModelConfig):
     enc_out = encode(params, batch["src_embeds"], cfg)
     x = layers.embed(params["embed"], batch["tokens"], cdt)
     positions = _positions(x)
-    x = scan_layers_remat(
-        lambda h, lp: _dec_block(lp, h, enc_out, cfg, cdt, positions), x,
-        unstack(params["decoder"], cfg.n_layers), cfg)
+    def body(h, lp):
+        h = constrain(h)
+        lp = gather_layer_params(lp)
+        return _dec_block(lp, h, enc_out, cfg, cdt, positions)
+
+    x = scan_layers_remat(body, x, unstack(params["decoder"], cfg.n_layers),
+                          cfg)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -174,6 +182,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
                         device=x.device)
     positions = _positions(x)
     for li, lp in enumerate(unstack(params["decoder"], cfg.n_layers)):
+        x = constrain(x)
         kx, vx = _cross_kv(lp, enc_out, cdt)
         caches["xk"][li] = kx.to(cdt)
         caches["xv"][li] = vx.to(cdt)

@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.act_sharding import constrain_heads
+
 NEG_INF = -2.0e38
 
 
@@ -155,6 +157,9 @@ def _attend(q, k, v, causal, chunk_q, chunk_kv, q_offset, core):
         rep = h // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
+    q = constrain_heads(q)
+    k = constrain_heads(k)
+    v = constrain_heads(v)
     cq = min(chunk_q, sq)
     ckv = min(chunk_kv, skv)
     nq, nkv = -(-sq // cq), -(-skv // ckv)

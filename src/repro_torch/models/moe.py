@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel.act_sharding import constrain_ec, constrain_tokens
 
 
 def moe_init(gen, cfg, dtype=torch.float32, lead=(), device=None):
@@ -86,6 +87,7 @@ def moe_layer(params, x, cfg, compute_dtype):
     x_flat = torch.repeat_interleave(x.to(compute_dtype), k, dim=1)
     x_flat = torch.cat([x_flat, x_flat.new_zeros(b, 1, d)], dim=1)
     xe = torch.gather(x_flat, 1, src_of_slot[..., None].expand(-1, -1, d))
+    xe = constrain_ec(xe)                       # the reference's a2a
     xe = xe.reshape(b, e, cap, d)
 
     # expert FFN (SwiGLU) over stacked weights
@@ -96,7 +98,7 @@ def moe_layer(params, x, cfg, compute_dtype):
     ye = torch.einsum("becf,efd->becd", h, params["wo"].to(compute_dtype))
 
     # combine: gather each token's k outputs
-    ye = ye.reshape(b, e * cap, d)
+    ye = constrain_tokens(ye.reshape(b, e * cap, d))
     ye = torch.cat([ye, ye.new_zeros(b, 1, d)], dim=1)
     slot_flat = slot.reshape(b, s * k)
     yk = torch.gather(ye, 1, slot_flat[..., None].expand(-1, -1, d))

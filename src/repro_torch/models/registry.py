@@ -1,12 +1,14 @@
 """Architecture registry: arch-id config -> model functions, input shapes.
 
-``input_specs`` (the reference's ``eval_shape`` cache specs) comes with the
-LM half of ``launch/dryrun.py``.
+``input_specs`` gives a dry-run cell's inputs as meta tensors (shapes and
+dtypes, nothing allocated), where the reference gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
@@ -70,3 +72,39 @@ def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
                        "arch has no sub-quadratic variant -- skipped "
                        "per assignment rules")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, dtype=torch.int32):
+    """Meta-tensor stand-ins for every model input of a dry-run cell.
+
+    Returns (batch, extra) where extra carries the cache (meta tensors)
+    for decode kinds.  No memory is allocated.
+    """
+    sh = SHAPES[shape_name]
+    S, B = sh["seq_len"], sh["global_batch"]
+    f = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    emb_dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def token_batch(seq):
+        if cfg.family == "vlm":
+            return {"embeds": f((B, seq, cfg.d_model), emb_dt),
+                    "positions": f((3, B, seq), torch.int32)}
+        if cfg.family == "encdec":
+            return {"src_embeds": f((B, seq, cfg.d_model), emb_dt),
+                    "tokens": f((B, seq), torch.int32)}
+        return {"tokens": f((B, seq), torch.int32)}
+
+    if sh["kind"] == "train":
+        batch = token_batch(S)
+        batch["labels"] = f((B, S), torch.int32)
+        return batch, None
+    if sh["kind"] == "prefill":
+        return token_batch(S), None
+    # decode: one new token against a full cache of length S
+    if cfg.family == "vlm":
+        batch = {"embeds": f((B, 1, cfg.d_model), emb_dt),
+                 "positions": f((3, B, 1), torch.int32)}
+    else:
+        batch = {"tokens": f((B, 1), torch.int32)}
+    arch = make_arch(cfg)
+    return batch, arch.init_cache(B, S, S, device="meta")

@@ -8,8 +8,11 @@ layer slices, so that a backward stacks the L slices' gradients once.  In
 training (``cfg.remat`` and grad enabled) the loop is checkpointed at the
 reference's two levels, per group of layers and per layer
 (``torch.utils.checkpoint``, non-reentrant), which changes no value.  The
-reference's sharding hooks (``constrain``, ``gather_layer_params``,
-``constrain_heads``) are identities on one device and are not called.
+reference's sharding hooks (``parallel.act_sharding``: ``constrain``,
+``gather_layer_params``) are called at its places; without a registered
+mesh they are identities, and inside a sharded train step
+``gather_layer_params`` gathers each layer's weights from the rank's
+blocks (inside the per-layer checkpoint, so the backward gathers again).
 
 Three entry points:
   * ``forward``      -- full-sequence logits.
@@ -30,6 +33,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.act_sharding import constrain, gather_layer_params
 from repro_torch.tree import flatten, unflatten
 
 
@@ -304,13 +308,18 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
     if cfg.family in ("dense", "moe", "vlm"):
         use_moe = cfg.family == "moe"
         if caches is None:
-            return scan_layers_remat(
-                lambda h, lp: _attn_mlp_block(lp, h, cfg, cdt, positions,
-                                              use_moe=use_moe),
-                x, lps, cfg), None
+            def body(h, lp):
+                h = constrain(h)
+                lp = gather_layer_params(lp)
+                return _attn_mlp_block(lp, h, cfg, cdt, positions,
+                                       use_moe=use_moe)
+
+            return scan_layers_remat(body, x, lps, cfg), None
         names = (["k", "v", "k_scale", "v_scale"]
                  if "k_scale" in caches else ["k", "v"])
         for li in range(L):
+            if x.shape[1] != 1:          # prefill (decode: no hook)
+                x = constrain(x)
             x = _attn_mlp_block(lps[li], x, cfg, cdt, positions,
                                 cache=tuple(caches[n][li] for n in names),
                                 pos=pos, use_moe=use_moe)
@@ -318,11 +327,15 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
 
     if cfg.family == "ssm":
         if caches is None:
-            return scan_layers_remat(
-                lambda h, lp: _ssm_block(lp, h, cfg, cdt)[0], x, lps,
-                cfg), None
+            def body(h, lp):
+                h = constrain(h)
+                lp = gather_layer_params(lp)
+                return _ssm_block(lp, h, cfg, cdt)[0]
+
+            return scan_layers_remat(body, x, lps, cfg), None
         for li in range(L):
-            x = _ssm_layer(lps[li], x, cfg, cdt, caches, li)
+            x = _ssm_layer(gather_layer_params(lps[li]), constrain(x), cfg,
+                           cdt, caches, li)
         return x, caches
 
     if cfg.family == "hybrid":
@@ -334,8 +347,8 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
             size = min(every, L - g * every)
             if caches is None:
                 x = scan_layers_remat(
-                    lambda h, lp: _ssm_block(lp, h, cfg, cdt)[0], x,
-                    lps[li:li + size], cfg)
+                    lambda h, lp: _ssm_block(lp, constrain(h), cfg, cdt)[0],
+                    x, lps[li:li + size], cfg)
                 # shared attention block after each group (rematted: its
                 # flash residuals would otherwise persist per invocation)
                 shared = lambda h, h0, p: _shared_block(p, h, h0, cfg, cdt,
@@ -346,7 +359,7 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
                 li += size
                 continue
             for _ in range(size):
-                x = _ssm_layer(lps[li], x, cfg, cdt, caches, li)
+                x = _ssm_layer(lps[li], constrain(x), cfg, cdt, caches, li)
                 li += 1
             # shared attention block after each group
             x = _shared_block(params["shared_attn"], x, x0, cfg, cdt,

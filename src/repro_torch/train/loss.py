@@ -40,15 +40,16 @@ def cross_entropy(logits, labels, *, z_loss: float = 1e-4, mask=None):
     return _metrics(loss, acc)
 
 
-def chunked_cross_entropy(head_fn, features, labels, *, chunk: int = 512,
-                          z_loss: float = 1e-4, mask=None):
-    """CE over sequence chunks so the (b, s, vocab) logits never
-    materialise.
+def chunked_ce_sums(head_fn, features, labels, *, chunk: int = 512,
+                    z_loss: float = 1e-4, mask=None):
+    """``(nll_sum, hits, count)`` of the masked tokens in float32, over
+    sequence chunks so the (b, s, vocab) logits never materialise.
 
     ``head_fn(x_chunk) -> logits_chunk``; each chunk's body is
     checkpointed when a backward may follow, so the backward recomputes
     its logits instead of storing them -- peak memory is one
-    (b, chunk, vocab) float32 block.
+    (b, chunk, vocab) float32 block.  The sums of a sharded batch add up
+    over its blocks (``train.step``'s sharded loss).
     """
     b, s, _ = features.shape
     c = min(chunk, s)
@@ -71,5 +72,19 @@ def chunked_cross_entropy(head_fn, features, labels, *, chunk: int = 512,
         n, a, k = run(body, features[:, i:i + c], labels[:, i:i + c],
                       mask[:, i:i + c])
         nll_sum, acc_sum, cnt = nll_sum + n, acc_sum + a, cnt + k
+    return nll_sum, acc_sum, cnt
+
+
+def chunked_cross_entropy(head_fn, features, labels, *, chunk: int = 512,
+                          z_loss: float = 1e-4, mask=None):
+    """CE over sequence chunks (:func:`chunked_ce_sums`); returns
+    ``(loss, metrics)``."""
+    return metrics_of_sums(*chunked_ce_sums(head_fn, features, labels,
+                                            chunk=chunk, z_loss=z_loss,
+                                            mask=mask))
+
+
+def metrics_of_sums(nll_sum, acc_sum, cnt):
+    """``(loss, metrics)`` of summed CE numerators and a token count."""
     denom = torch.clamp(cnt, min=1.0)
     return _metrics(nll_sum / denom, acc_sum / denom)

@@ -15,6 +15,16 @@ any other tree.  Tensors are never written in place.
                    (``{"vr", "vc"}`` or ``{"v"}``), walked down to the
                    gradients' leaves only.
 * ``sgdm``      -- baseline.
+
+Every ``update`` takes ``shards=`` (``parallel.zero.Shards``) when its
+trees are this rank's blocks of a ZeRO-3 sharded state: the elementwise
+updates run on the blocks as they are, and the whole-leaf reductions --
+the global norm, Adafactor's row and column means of the squared
+gradient, the mean of its row statistic and its update RMS -- sum over
+the ranks that hold the other blocks.  Each Adafactor state leaf keeps its
+own spec (the rules' ``vr``/``vc`` first fit), so the factored statistics
+are formed whole (O(n + m) per (n, m) matrix) and each rank keeps its
+blocks of them.
 """
 from __future__ import annotations
 
@@ -24,6 +34,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.distributed import PartitionSpec as P
+from repro_torch.parallel.zero import assemble, padded
 from repro_torch.tree import flatten, flatten_up_to, unflatten
 
 
@@ -55,19 +67,21 @@ def constant_lr(lr_value: float):
                                      device=step.device)
 
 
-def global_norm(tree):
+def global_norm(tree, shards=None):
     """sqrt of the sum of squares of every leaf, in float32, leaf by leaf
-    in tree order."""
+    in tree order (of the full leaves, with ``shards``)."""
     _, leaves = flatten(tree)
+    if shards is not None:
+        return torch.sqrt(shards.norm_sq(leaves))
     total = 0
     for x in leaves:
         total = total + torch.sum(torch.square(x.to(torch.float32)))
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shards=None):
     """``(grads scaled to a global norm of at most max_norm, norm)``."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return unflatten(grads, [g * scale for g in flatten(grads)[1]]), norm
 
@@ -86,8 +100,8 @@ def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                 "nu": unflatten(params, [z.clone() for z in zeros]),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, shards=None):
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, shards)
         c = state["count"] + 1
         lr = lr_fn(c)
         cf = c.to(torch.float32)
@@ -138,40 +152,70 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, grad_clip=1.0,
         return {"m": unflatten(params, [state_for(p) for p in leaves]),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, shards=None):
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, shards)
         c = state["count"] + 1
         lr = lr_fn(c)
         beta = 1.0 - c.to(torch.float32) ** -decay
 
-        def upd(g, s, p):
+        def upd(g, s, p, lay):
             g = g.to(torch.float32)
             g2 = g * g + eps
             if "vr" in s:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                if lay is None:
+                    vr_prev, vc_prev = s["vr"], s["vc"]
+                    row, col = g2.mean(-1), g2.mean(-2)
+                else:
+                    specs = _factored_specs(lay)
+                    vr_prev = assemble(lay.mesh, s["vr"], specs[0])
+                    vc_prev = assemble(lay.mesh, s["vc"], specs[1])
+                    row = lay.full_sum(g2, -1) / lay.shape[-1]
+                    col = lay.full_sum(g2, -2) / lay.shape[-2]
+                vr = beta * vr_prev + (1 - beta) * row
+                vc = beta * vc_prev + (1 - beta) * col
                 r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
-                denom = torch.sqrt(r[..., None] * vc[..., None, :])
                 new_s = {"vr": vr, "vc": vc}
+                if lay is not None:
+                    # this rank's rows and columns of the full statistics
+                    spec = padded(lay.spec, len(lay.shape))
+                    r = lay.mesh.block(r, P(*spec[:-1]))
+                    vc = lay.mesh.block(vc, P(*(spec[:-2] + spec[-1:])))
+                    new_s = {"vr": lay.mesh.block(new_s["vr"], specs[0]),
+                             "vc": lay.mesh.block(new_s["vc"], specs[1])}
+                denom = torch.sqrt(r[..., None] * vc[..., None, :])
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 denom = torch.sqrt(v)
                 new_s = {"v": v}
             step = g / torch.clamp(denom, min=1e-30)
             # relative step-size clipping (RMS <= 1)
-            rms = torch.sqrt(torch.mean(step * step))
+            if lay is None:
+                rms = torch.sqrt(torch.mean(step * step))
+            else:
+                rms = torch.sqrt(lay.total(step * step)
+                                 / math.prod(lay.shape))
             step = step / torch.clamp(rms, min=1.0)
             step = step + weight_decay * p.to(torch.float32)
             return (p.to(torch.float32) - lr * step).to(p.dtype), new_s
 
         _, g_flat = flatten(grads)
-        pairs = [upd(g, s, p) for g, s, p in zip(
-            g_flat, flatten_up_to(grads, state["m"]), flatten(params)[1])]
+        lays = [None] * len(g_flat) if shards is None else shards.layouts
+        pairs = [upd(g, s, p, lay) for g, s, p, lay in zip(
+            g_flat, flatten_up_to(grads, state["m"]), flatten(params)[1],
+            lays)]
         return (unflatten(params, [t[0] for t in pairs]),
                 {"m": unflatten(grads, [t[1] for t in pairs]), "count": c},
                 {"grad_norm": gnorm, "lr": lr})
 
     return Optimizer(init, update)
+
+
+def _factored_specs(lay):
+    """The rules' specs of a factored leaf's ``vr`` and ``vc`` (Adafactor's
+    state tree is ``{"m": {<param path>: {"vr", "vc"}}, "count"}``)."""
+    rows, cols = lay.shape[:-1], lay.shape[:-2] + lay.shape[-1:]
+    return (lay.state_spec(f"m/{lay.key}/vr", rows),
+            lay.state_spec(f"m/{lay.key}/vc", cols))
 
 
 def sgdm(lr_fn, momentum=0.9, grad_clip=1.0):
@@ -184,8 +228,8 @@ def sgdm(lr_fn, momentum=0.9, grad_clip=1.0):
             for p in leaves]),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params):
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, shards=None):
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, shards)
         c = state["count"] + 1
         lr = lr_fn(c)
         new_p, new_m = [], []

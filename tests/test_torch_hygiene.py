@@ -2,7 +2,8 @@
 
 An ``ast`` scan of every module of ``src/repro_torch``, of ``chip_smoke.py``,
 of the fixture loaders it reads (``tests/relax_fixture.py``,
-``tests/lm_fixture.py``, ``tests/lm_train_fixture.py``) and of the mesh
+``tests/lm_fixture.py``, ``tests/lm_train_fixture.py``,
+``tests/lm_mesh_fixture.py``) and of the mesh
 ranks' module (``tests/torch_mesh.py``) finds no import of ``jax``,
 ``repro`` or ``msgpack``; a
 fresh interpreter that imports every port module has not loaded ``jax``; the
@@ -27,6 +28,7 @@ def port_files():
                                          ROOT / "tests" / "relax_fixture.py",
                                          ROOT / "tests" / "lm_fixture.py",
                                          ROOT / "tests" / "lm_train_fixture.py",
+                                         ROOT / "tests" / "lm_mesh_fixture.py",
                                          ROOT / "tests" / "torch_mesh.py"]
 
 
@@ -35,7 +37,7 @@ def test_the_scan_covers_every_package_of_the_port():
                if PORT in p.parents}
     assert {"core", "sim", "mac", "kernels", "obs", "env", "train",
             "robust", "twin", "rl", "analysis", "configs", "launch",
-            "models", "serve"} <= scanned
+            "models", "serve", "parallel"} <= scanned
     names = module_names()
     for m in ("repro_torch.env.crrm_env", "repro_torch.env.gym_adapter",
               "repro_torch.obs.telemetry", "repro_torch.sim.scenarios",
@@ -60,7 +62,11 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.configs.zamba2_1p2b", "repro_torch.models.encdec",
               "repro_torch.train.loss", "repro_torch.train.data",
               "repro_torch.train.step", "repro_torch.train.loop",
-              "repro_torch.launch.train", "repro_torch.analysis.flops"):
+              "repro_torch.launch.train", "repro_torch.analysis.flops",
+              "repro_torch.parallel", "repro_torch.parallel.mesh",
+              "repro_torch.parallel.sharding",
+              "repro_torch.parallel.act_sharding",
+              "repro_torch.parallel.zero", "repro_torch.launch.mesh"):
         assert m in names, m
 
 

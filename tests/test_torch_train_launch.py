@@ -1,16 +1,19 @@
 """The port's training loop under SIGTERM and its launcher, on reduced
 qwen1.5-0.5b on the CPU: a SIGTERM mid-run saves the state ``train``
 returns (bit for bit) and a resume goes on from it, the handler put back;
-``launch.train.main`` trains, checkpoints, resumes, runs each optimizer
-with accumulation, refuses meshes, as ``train`` does, and refuses the
-families whose inputs the token streams do not carry.  (The loop held
-to the reference's: ``tests/test_torch_train_loop.py``.)
+``launch.train.main`` trains on a 1-rank mesh (``--mesh host`` and
+``host:1x2``, which falls back to the ranks there are), checkpoints,
+resumes, runs each optimizer with accumulation, and refuses the families
+whose inputs the token streams do not carry.  (The loop held to the
+reference's: ``tests/test_torch_train_loop.py``; the launcher held to the
+reference's sharded loop: ``tests/test_torch_lm_mesh_launch.py``.)
 """
 import os
 import signal
 
 import numpy as np
 import pytest
+import torch
 
 from lm_train_parity import one_thread  # noqa: F401  (autouse)
 from repro_torch.configs import get_config
@@ -74,9 +77,13 @@ def test_launch_train_main(tmp_path, capsys):
     launch_train.main(argv[:4] + ["8"] + argv[5:])
     assert "# resumed from" in capsys.readouterr().out
     assert ckpt.latest_step(d) == 8
-    with pytest.raises(NotImplementedError, match="mesh"):
-        launch_train.main(["--reduced", "--device", "cpu", "--mesh",
-                           "host:2x1"])
+    # (1, 2) over one rank: the reference's fallback to (world, 1)
+    hist = launch_train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                              "--batch", "2", "--seq-len", "16", "--mesh",
+                              "host:1x2"])
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    assert len(hist) == 1 and np.isfinite(hist).all()
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-72b"])
@@ -93,11 +100,3 @@ def test_launch_train_other_optimizers(tmp_path, name):
                               "--optimizer", name, "--accum", "2",
                               "--no-resume"])
     assert len(hist) == 1 and np.isfinite(hist[0])
-
-
-def test_train_refuses_a_mesh():
-    cfg = get_config(ARCH, reduced=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train(make_arch(cfg), optim.adamw(optim.constant_lr(1e-3)),
-              object(), SyntheticLM(cfg.vocab_size, 2, 8), steps=1,
-              device="cpu")

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.tree import flatten
+
 #: seconds a collective waits for a peer before it raises
 COLLECTIVE_TIMEOUT = 60
 #: seconds a whole spawn may take before its ranks are killed
@@ -331,9 +333,115 @@ def job_collectives(job):
             "process": after.total_wire_bytes - before.total_wire_bytes}
 
 
+def lm_setup(run):
+    """The port's arch, optimizer and data of an LM run: reduced
+    ``run["arch"]`` (widened by ``run["cfg"]``), ``run["opt"]`` =
+    (name, kwargs) over ``warmup_cosine(*run["lr"])``, ``SyntheticLM``
+    (``run["batch"]``) from seed 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train import optim
+    from repro_torch.train.data import SyntheticLM
+    cfg = dataclasses.replace(get_config(run["arch"], reduced=True),
+                              **run.get("cfg", {}))
+    name, kw = run["opt"]
+    opt = optim.OPTIMIZERS[name](optim.warmup_cosine(*run["lr"]), **kw)
+    b, s = run["batch"]
+    return make_arch(cfg), opt, SyntheticLM(cfg.vocab_size, b, s, seed=0)
+
+
+def job_lm_train(job):
+    """``train.loop.train(mesh=)`` runs in turn on meshes of all the ranks
+    (each ``run``: mesh shape, strategy, checkpoint directory, steps, the
+    :func:`lm_setup` keys): each run's logged losses and the collectives
+    of its steps."""
+    from repro_torch.core import distributed as D
+    from repro_torch.parallel import mesh as M
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import state_specs, unblock_tree
+    out = []
+    for run in job["runs"]:
+        M.set_strategy(run.get("strategy", "2d"))
+        try:
+            mesh = D.make_mesh(run["mesh"], ("data", "model"), "cpu")
+            arch, opt, data = lm_setup(run)
+            with D.count_collectives() as c:
+                state, hist = train(arch, opt, mesh, data,
+                                    steps=run["steps"], ckpt_dir=run["dir"],
+                                    ckpt_every=run.get("ckpt_every", 100),
+                                    log_every=1,
+                                    accum_steps=run.get("accum", 1))
+            res = {"hist": hist, "counts": dict(c.counts),
+                   "wire": c.total_wire_bytes}
+            if run.get("params"):
+                specs = state_specs(arch, opt, mesh)[1]
+                res["params"] = [_np(x) for x in flatten(unblock_tree(
+                    mesh, state["params"], specs["params"]))[1]]
+        finally:
+            M.set_strategy("2d")
+        out.append(res)
+    return out
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.as_tensor(tree)
+
+
+def job_optim(job):
+    """Each optimizer's sharded update (this rank's blocks, ``shards=``)
+    against its unsharded update of the whole tree, over ``job["grads"]``
+    (one tree per step) on each mesh of ``job["meshes"]`` ((shape,
+    strategy)): the full params, states and metrics of both, gathered."""
+    from repro_torch.core import distributed as D
+    from repro_torch.parallel import mesh as M
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import zero
+    from repro_torch.train import optim
+    from repro_torch.train.step import block_tree, unblock_tree
+    params = _torch_tree(job["params"])
+    grads = [_torch_tree(g) for g in job["grads"]]
+    out = {}
+    for shape, mode in job["meshes"]:
+        M.set_strategy(mode)
+        try:
+            mesh = D.make_mesh(shape, ("data", "model"), "cpu")
+            specs = shd.infer_param_specs(params, mesh)
+            shards = zero.Shards.of(mesh, params, specs)
+            for name in ("adamw", "adafactor", "sgdm"):
+                opt = optim.OPTIMIZERS[name](optim.warmup_cosine(1e-2, 1,
+                                                                 10))
+                state = opt.init(params)
+                s_specs = shd.infer_param_specs(state, mesh)
+                p_full, s_full = params, state
+                p_blk = block_tree(mesh, params, specs)
+                s_blk = block_tree(mesh, state, s_specs)
+                ms = []
+                for g in grads:
+                    p_full, s_full, m_full = opt.update(g, s_full, p_full)
+                    p_blk, s_blk, m_blk = opt.update(
+                        block_tree(mesh, g, specs), s_blk, p_blk,
+                        shards=shards)
+                    ms.append(({k: float(v) for k, v in m_full.items()},
+                               {k: float(v) for k, v in m_blk.items()}))
+                full = [_np(x) for x in flatten((p_full, s_full))[1]]
+                sharded = [_np(x) for x in flatten((
+                    unblock_tree(mesh, p_blk, specs),
+                    unblock_tree(mesh, s_blk, s_specs)))[1]]
+                out[(tuple(shape), mode, name)] = {
+                    "full": full, "sharded": sharded, "metrics": ms,
+                    "specs": [tuple(sp) for sp in shd.spec_leaves(specs)]}
+        finally:
+            M.set_strategy("2d")
+    return out
+
+
 JOBS = {"rollouts": job_rollouts, "steps": job_steps, "env": job_env,
         "restore": job_restore, "card": job_card,
-        "collectives": job_collectives}
+        "collectives": job_collectives, "lm_train": job_lm_train,
+        "optim": job_optim}
 
 
 def same_on_every_rank(outs):
