@@ -166,18 +166,34 @@ Phases, each printing its own lines:
               unsharded run (bit for bit or not, in deterministic mode:
               printed); then
               2 gloo ranks sharing the card with CUDA tensors on (2, 1)
-              and (1, 2) meshes in float32, losses within rtol 1e-5 of the
-              1-rank run, per rank the peak memory beside the reckoned
-              per-rank state, collective calls and wire bytes per step and
-              ms per step (a record: the ranks share one card); then
-              ``launch.dryrun --arch qwen1.5-0.5b --all --both-meshes``:
-              each cell's reckoned GiB per device and analytic flops, and
-              its one-device reckoning against the card's memory.
+              and (1, 2) meshes in float32 ((1, 2) computing
+              tensor-parallel on ``model``), losses within rtol 1e-5 of
+              the 1-rank run, per rank the peak memory beside the
+              reckoned per-rank state, collective calls and wire bytes per
+              step beside the storage-only model axis's and ms per step
+              (a record: the ranks share one card); then ``launch.dryrun
+              --arch qwen1.5-0.5b --all --both-meshes``: each cell's
+              reckoned GiB per device and analytic flops, and its
+              one-device reckoning against the card's memory;
+20. serve_mesh -- serving on a mesh (``ServeEngine(arch, mesh)``,
+              tensor-parallel on ``model``): qwen1.5-0.5b at full width on
+              the fixture's weights on a 1-rank NCCL (1, 1) mesh in
+              bfloat16 and float32, held to the reference's fixture as
+              phase 17 is; then 2 gloo ranks sharing the card on (1, 2):
+              qwen in float32 held to the 1-rank run (tokens off counted
+              near ties, logits rtol 1e-4), granite-moe-1b-a400m at full
+              width (16 experts a rank) and reduced yi-6b at ``max_len``
+              8192 (its cache's sequence on ``model``) each held to the
+              port's unsharded engine on the card; per rank the peak
+              beside the reckoned params + cache, all-reduces and wire
+              bytes per decode step, ms per prefill and per decode step.
+              Alone: ``python -c "import chip_smoke as c; n, smi =
+              c.phase_device(); c.phase_serve_mesh(smi)"``.
 
 Each path (pairwise, episode, env, churn, faults, batch, twin, diffopt,
-ppo, each mesh run in its own rank, the report, serve, train and mesh_lm)
-sets every kernel's launch count to 0 just before it and reads the counts
-just after; phases 13, 14, 17, 18 and 19 launch neither kernel (the
+ppo, each mesh run in its own rank, the report, serve, train, mesh_lm and
+serve_mesh) sets every kernel's launch count to 0 just before it and reads
+the counts just after; phases 13, 14 and 17-20 launch neither kernel (the
 relaxed chain is the torch one: fused_sinr has no backward; the LM path
 has no hand-written kernel) and fail if one launched.  The line before the last
 is the JSON of the kernels, the last line the JSON of the device.  Any
@@ -2622,19 +2638,29 @@ def serve_full_configs(smi):
         torch.cuda.empty_cache()
 
 
+#: phase 17's timed runs at launch.serve's defaults: (engine, label)
+SERVE_ORDER = (("unsharded", "warm-up"), ("(1, 1) mesh", "warm-up"),
+               ("unsharded", "measured"), ("(1, 1) mesh", "measured"),
+               ("(1, 1) mesh", "measured again"),
+               ("unsharded", "measured again"))
+
+
 def phase_serve(smi):
     """Phase 17: the LM serving path on the card -- qwen1.5-0.5b at full
-    width held to the reference's fixture, ``launch.serve``'s defaults,
-    a larger arm, one profiled decode step, the full configs."""
+    width held to the reference's fixture, ``launch.serve``'s defaults
+    (the unsharded engine beside the (1, 1) mesh engine it serves
+    through, at the same shapes), a larger arm, one profiled decode step, the full configs."""
     import gc
 
     import numpy as np
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import lm_fixture
     from repro_torch.analysis import roofline
+    from repro_torch.launch import dryrun
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer
     from repro_torch.models.registry import make_arch
+    from repro_torch.parallel.mesh import make_host_mesh
     from repro_torch.serve.engine import ServeEngine
     t_phase = time.perf_counter()
     # -- the main path: counts to 0 just before, read just after ----------
@@ -2671,14 +2697,28 @@ def phase_serve(smi):
     prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 24))
                for _ in range(8)]
     base = fresh_peak()
-    for label in ("warm-up", "measured"):
-        o, wall, ms_pre, ms_dec, n_pre, n_dec = serve_timed(eng, prompts, 16)
-        log("serve", f"launch.serve defaults, {label} run ({smi}): "
-            f"{o['n_tokens']} tokens in {wall:.3f} s = {o['tokens_per_s']:.1f}"
-            f" tok/s; {n_pre} prefills at {ms_pre:.2f} ms, {n_dec} decode "
-            f"steps at {ms_dec:.3f} ms; peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (held "
-            f"before: {base:.2f})")
+    # the unsharded engine and launch.serve's (1, 1) mesh engine (the same
+    # seeded params) at the same shapes, interleaved
+    with dryrun.one_rank_group(torch.device(CARD)):
+        engines = {"unsharded": eng, "(1, 1) mesh": ServeEngine(
+            arch, make_host_mesh(1, 1, device=CARD), batch_slots=4,
+            max_len=128)}
+        tokens = {}
+        for name, label in SERVE_ORDER:
+            o, wall, ms_pre, ms_dec, n_pre, n_dec = serve_timed(
+                engines[name], prompts, 16)
+            tokens.setdefault(name, [t for _, t in
+                                     sorted(o["results"].items())])
+            log("serve", f"launch.serve defaults, {name} engine, {label} "
+                f"run ({smi}): {o['n_tokens']} tokens in {wall:.3f} s = "
+                f"{o['tokens_per_s']:.1f} tok/s; {n_pre} prefills at "
+                f"{ms_pre:.2f} ms, {n_dec} decode steps at {ms_dec:.3f} ms;"
+                f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                f" (held before: {base:.2f})")
+        del engines
+    if tokens["unsharded"] != tokens["(1, 1) mesh"]:
+        raise AssertionError("serve: the (1, 1) mesh engine's tokens part "
+                             "from the unsharded engine's")
     # one decode step under the package's trace, beside its byte bound
     tokens = torch.as_tensor(np.stack([np.arange(20) % cfg.vocab_size] * 4),
                              device="cuda")
@@ -3130,11 +3170,20 @@ def mesh_lm_dryrun(smi):
         f"reckoning fits the card: {[n for n, ok in fits if ok] or 'none'}")
 
 
+#: phase 19's gloo runs while the model axis sharded storage only, before
+#: it computed tensor-parallel (PERF.md section 6, NVIDIA H100 80GB HBM3,
+#: 700.00 W): all-reduces and MiB per step, peak per rank
+STORAGE_ONLY_MESH_LM = {
+    (2, 1): "778 all-reduces, 5241.0 MiB per step, peak 11.17 GiB",
+    (1, 2): "693 all-reduces, 2877.9 MiB per step, peak 11.17 GiB"}
+
+
 def phase_mesh_lm(smi):
     """Phase 19: the LM meshes -- ZeRO-3 training through
     ``train.loop.train(mesh=)`` on a 1-rank NCCL mesh held to the
-    reference's sharded fixture, 2 gloo ranks sharing the card, the LM
-    dry-run over the named meshes; no kernel launched."""
+    reference's sharded fixture, 2 gloo ranks sharing the card ((1, 2)
+    computing tensor-parallel on ``model``), the LM dry-run over the named
+    meshes; no kernel launched."""
     import gc
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import lm_fixture
@@ -3209,13 +3258,258 @@ def phase_mesh_lm(smi):
                 f"{ {k: v / lmf.STEPS for k, v in r['counts'].items()} }, "
                 f"wire {r['wire'] / lmf.STEPS / 2**20:.1f} MiB per step; "
                 f"ms per step {[round(x, 1) for x in r['ms']]} (ranks share "
-                f"the card: a record); launches {r['launches']}")
+                f"the card: a record); launches {r['launches']}; beside "
+                f"the storage-only model axis's "
+                f"{STORAGE_ONLY_MESH_LM[tuple(r['shape'])]}")
             if err > 1e-5 or any(r["launches"].values()):
                 raise AssertionError(f"mesh_lm gloo {r['shape']}: {r}")
     log("mesh_lm", f"gloo ranks in {time.perf_counter() - t0:.1f} s")
     mesh_lm_dryrun(smi)
     no_launches("mesh_lm", "the LM mesh path has no hand-written kernel")
     log("mesh_lm", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+
+#: phase 20's runs: granite-moe-1b-a400m at full width and reduced yi-6b's
+#: long cache (prompts of these lengths, 8 new tokens, 2 slots)
+SERVE_MESH_YI = dict(max_len=8192, prompts=(6000, 5000), new=8)
+
+
+def serve_mesh_run(eng, prompts, max_new):
+    """One ``ServeEngine.run`` over ``prompts``: tokens per request, the
+    (B, V) float32 logits every sampling step saw, and per prefill and per
+    decode step its synchronised ms and the all-reduce calls and wire
+    bytes it made (the model's; the engine's assembly of the logits over
+    the batch axes comes after)."""
+    import dataclasses
+    from repro_torch.core import distributed as D
+    steps, rec = [], {"prefill": [], "decode": []}
+    sample, arch = eng._sample, eng.arch
+
+    def record(logits):
+        steps.append(logits[:, -1].float().cpu().numpy())
+        return sample(logits)
+
+    def timed(kind, fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            before = D.collective_stats()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = D.collective_stats()
+            rec[kind].append((ms, after.counts.get("all-reduce", 0)
+                              - before.counts.get("all-reduce", 0),
+                              after.total_wire_bytes
+                              - before.total_wire_bytes))
+            return out
+        return call
+
+    eng._sample = record
+    eng.arch = dataclasses.replace(
+        arch, prefill=timed("prefill", arch.prefill),
+        decode_step=timed("decode", arch.decode_step))
+    try:
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        out = eng.run()
+    finally:
+        eng._sample, eng.arch = sample, arch
+    return [out["results"][r.rid] for r in reqs], steps, rec
+
+
+def serve_mesh_line(rec):
+    """The per-call numbers of :func:`serve_mesh_run` as text: ms per
+    prefill and per decode step (steps after the first), all-reduces and
+    MiB per decode step."""
+    pre = [r[0] for r in rec["prefill"]]
+    dec = rec["decode"]
+    warm = dec[1:] or dec
+    return (f"ms per prefill {[round(x, 1) for x in pre]}, per decode step "
+            f"{np.median([r[0] for r in warm]):.2f} (median of "
+            f"{len(warm)}); per decode step {dec[0][1] if dec else 0} "
+            f"all-reduces, {dec[0][2] / 2**20 if dec else 0:.3f} MiB on "
+            f"the wire; per prefill {rec['prefill'][0][1]} all-reduces, "
+            f"{rec['prefill'][0][2] / 2**20:.3f} MiB")
+
+
+def reckoned_serve_bytes(eng):
+    """Bytes one rank holds of the engine's params and of its caches, laid
+    out by the rules (``parallel.sharding.per_device_bytes``)."""
+    from repro_torch.parallel import sharding as shd
+    arch, mesh = eng.arch, eng.mesh
+    params = arch.init(torch.Generator(), device="meta")
+    caches = arch.init_cache(eng.B, eng.S, device="meta")
+    return (shd.per_device_bytes(params, eng._spec_tree, mesh)
+            + shd.per_device_bytes(caches, eng.cache_specs, mesh))
+
+
+def mesh_serve_rank(job):
+    """One rank of phase 20's gloo runs on a (1, 2) mesh sharing the card:
+    qwen1.5-0.5b at full width on the fixture's weights in float32; then
+    granite-moe-1b-a400m at full width and reduced yi-6b at ``max_len``
+    8192, each beside the port's unsharded engine of the same seed."""
+    import dataclasses
+    import gc
+    import torch.distributed as tdist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    zero_counts()
+    mesh = D.make_mesh((1, 2), ("data", "model"), "cuda")
+    out = {"rank": tdist.get_rank(), "coord": dict(mesh.coord)}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    cfg = lm_fixture.config("float32")
+    fresh()
+    eng = ServeEngine(make_arch(cfg), mesh, batch_slots=lm_fixture.SLOTS,
+                      max_len=lm_fixture.MAX_LEN)
+    eng.load_params(lm_fixture.param_tree(cfg))
+    tokens, steps, rec = serve_mesh_run(eng, lm_fixture.prompts(cfg),
+                                        lm_fixture.MAX_NEW)
+    out["qwen"] = {"tokens": tokens, "steps": steps, "rec": rec,
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "reckoned": reckoned_serve_bytes(eng),
+                   "wq": tuple(eng.params["layers"]["attn"]["wq"].shape)}
+    del eng
+    runs = (("granite", dataclasses.replace(
+        get_config("granite-moe-1b-a400m"), dtype="float32"), 2, 64,
+        [np.arange(n) % 49155 for n in (5, 9)], 8),
+        ("yi", get_config("yi-6b", reduced=True), 2,
+         SERVE_MESH_YI["max_len"],
+         [np.random.default_rng(n).integers(0, 512, n)
+          for n in SERVE_MESH_YI["prompts"]], SERVE_MESH_YI["new"]))
+    for name, cfg, slots, max_len, prompts, new in runs:
+        res = {}
+        for which, m in (("mesh", mesh), ("unsharded", None)):
+            fresh()
+            eng = ServeEngine(make_arch(cfg), m, batch_slots=slots,
+                              max_len=max_len, seed=0,
+                              device=None if m is not None else "cuda")
+            tokens, steps, rec = serve_mesh_run(eng, prompts, new)
+            res[which] = {"tokens": tokens, "steps": steps, "rec": rec,
+                          "peak": torch.cuda.max_memory_allocated()}
+            if m is not None:
+                res["reckoned"] = reckoned_serve_bytes(eng)
+                layer = eng.params["layers"]
+                res["blocks"] = {
+                    "wq": tuple(layer["attn"]["wq"].shape),
+                    "wk": tuple(layer["attn"]["wk"].shape),
+                    "wi_gate": tuple((layer.get("moe") or layer["mlp"])
+                                     ["wi_gate"].shape)}
+                res["cache_spec"] = tuple(eng.cache_specs["k"])
+            del eng
+        out[name] = res
+    out["launches"] = launch_counts()
+    return out
+
+
+MESH_JOBS["serve_mesh"] = mesh_serve_rank
+
+
+def phase_serve_mesh(smi):
+    """Phase 20: serving on a mesh -- ``ServeEngine(arch, mesh)`` on a
+    1-rank NCCL (1, 1) mesh held to the reference's fixture, then two gloo
+    ranks sharing the card on (1, 2): qwen1.5-0.5b held to the 1-rank
+    run, granite-moe-1b-a400m at full width and reduced yi-6b's
+    sequence-sharded 8192 cache held to the port's unsharded engine; no
+    kernel launched."""
+    import gc
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import lm_fixture
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import make_arch
+    from repro_torch.parallel.mesh import make_host_mesh
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.perf_counter()
+    # -- the main path: counts to 0 just before, read just after ----------
+    torch.cuda.synchronize()
+    zero_counts()
+    tree = lm_fixture.param_tree(lm_fixture.config("float32"))
+    probe = lm_fixture.probe_ids(lm_fixture.config("float32"))
+    one = {}
+    with dryrun.one_rank_group(torch.device(CARD)):
+        mesh = make_host_mesh(1, 1, device=CARD)
+        for dtype in lm_fixture.DTYPES:
+            cfg = lm_fixture.config(dtype)
+            base = fresh_peak()
+            eng = ServeEngine(make_arch(cfg), mesh,
+                              batch_slots=lm_fixture.SLOTS,
+                              max_len=lm_fixture.MAX_LEN)
+            eng.load_params(tree)
+            tokens, steps, rec = serve_mesh_run(
+                eng, lm_fixture.prompts(cfg), lm_fixture.MAX_NEW)
+            want_tokens, want, _ = lm_fixture.read(dtype)
+            res = lm_fixture.hold(lm_fixture.summarize(steps, probe), want,
+                                  tokens, want_tokens, dtype)
+            one[dtype] = (tokens, steps)
+            log("serve_mesh", f"qwen1.5-0.5b full width, ServeEngine on a "
+                f"1-rank NCCL (1, 1) mesh, {dtype} compute, held to the "
+                f"reference's fixture ({smi}): {res['held_steps']} slot "
+                f"steps held, logits max |d| {res['max_err']:.3e} (tol "
+                f"{lm_fixture.TOL[dtype]}), near ties {res['near_ties']}, "
+                f"parted {res['parted']}; {serve_mesh_line(rec)}; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                f"beside the reckoned params + cache "
+                f"{reckoned_serve_bytes(eng) / 2**30:.3f} GiB (held "
+                f"before {base:.2f})")
+            if rec["decode"][0][1] != 0:
+                raise AssertionError("a 1-rank mesh made collectives")
+            del eng
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 2 gloo ranks sharing the card on (1, 2) --------------------------
+    t0 = time.perf_counter()
+    outs = [o[0] for o in spawn_ranks(2, "gloo", [{"name": "serve_mesh"}])]
+    f32_tokens, f32_steps = one["float32"]
+    want = lm_fixture.summarize(f32_steps, probe)
+    for r in outs:
+        q = r["qwen"]
+        res = lm_fixture.hold(lm_fixture.summarize(q["steps"], probe), want,
+                              q["tokens"], f32_tokens, "float32")
+        rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in zip(q["steps"], f32_steps))
+        log("serve_mesh", f"gloo (1, 2) rank {r['rank']} {r['coord']}: "
+            f"qwen1.5-0.5b f32 held to the 1-rank run ({smi}): "
+            f"{res['held_steps']} slot steps, tokens parted {res['parted']}"
+            f" (near ties {res['near_ties']}), logits max |d| rel to their "
+            f"largest {rel:.2e} (tol 1e-4); wq block {q['wq']}; "
+            f"{serve_mesh_line(q['rec'])}; peak {q['peak'] / 2**30:.3f} GiB"
+            f" beside the reckoned params + cache "
+            f"{q['reckoned'] / 2**30:.3f} GiB (ranks share the card: a "
+            f"record)")
+        if rel > 1e-4:
+            raise AssertionError(f"serve_mesh qwen rank {r['rank']}: {rel}")
+        for name in ("granite", "yi"):
+            m, u = r[name]["mesh"], r[name]["unsharded"]
+            p = np.arange(min(64, m["steps"][0].shape[1]))
+            res = lm_fixture.hold(lm_fixture.summarize(m["steps"], p),
+                                  lm_fixture.summarize(u["steps"], p),
+                                  m["tokens"], u["tokens"], "float32")
+            log("serve_mesh", f"gloo (1, 2) rank {r['rank']}: {name} "
+                f"({'full width, 16 experts a rank' if name == 'granite' else 'reduced, max_len 8192, cache ' + str(r[name]['cache_spec'])}"
+                f") held to the unsharded engine on the card ({smi}): "
+                f"{res['held_steps']} slot steps, logits max |d| "
+                f"{res['max_err']:.3e} (tol 1e-3), parted {res['parted']} "
+                f"(near ties {res['near_ties']}); blocks {r[name]['blocks']}"
+                f"; mesh {serve_mesh_line(m['rec'])}; unsharded "
+                f"{serve_mesh_line(u['rec'])}; peak {m['peak'] / 2**30:.3f}"
+                f" GiB beside the reckoned {r[name]['reckoned'] / 2**30:.3f}"
+                f" GiB (unsharded {u['peak'] / 2**30:.3f})")
+        if any(r["launches"].values()):
+            raise AssertionError(f"serve_mesh: kernels launched: "
+                                 f"{r['launches']}")
+    log("serve_mesh", f"gloo ranks in {time.perf_counter() - t0:.1f} s")
+    no_launches("serve_mesh", "the LM serving path has no hand-written "
+                "kernel")
+    log("serve_mesh", f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -3238,6 +3532,7 @@ def main():
     phase_serve(smi)
     phase_train(smi)
     phase_mesh_lm(smi)
+    phase_serve_mesh(smi)
     main_row = rows["main"]
     kernels = [{
         "name": "fused_sinr", "route": "cuda",

@@ -10,7 +10,10 @@ caches split into self-attention caches (``k``, ``v``: written in place
 by each step) and cross-attention K/V (``xk``, ``xv``: computed once from
 the encoder output by ``prefill``; decode steps never touch them).  The
 cross-attention projects with ``wq``/``wk``/``wv`` alone, no bias and no
-RoPE, as the reference does.
+RoPE, as the reference does.  Under tensor parallelism both attentions and
+the MLP compute on the rank's heads and columns (``models.attention``,
+``models.layers``), and in training the residuals between layers are the
+rank's sequence blocks (``parallel.act_sharding.constrain``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_cdt, _pdt, _write,
                                             scan_layers_remat, unstack)
-from repro_torch.parallel.act_sharding import constrain, gather_layer_params
+from repro_torch.parallel import act_sharding
+from repro_torch.parallel.act_sharding import (constrain, gather_layer_params,
+                                              unconstrain)
 
 
 def _enc_layers_init(gen, cfg, pdt, dev):
@@ -71,6 +76,9 @@ def _positions(x, start=0):
 
 
 def _flash(q, k, v, cfg, causal):
+    """Flash attention of the rank's query heads (all without TP)."""
+    k = attention.local_kv(k, cfg, q.shape[2])
+    v = attention.local_kv(v, cfg, q.shape[2])
     return attention.chunked_attention(q, k, v, causal=causal,
                                        chunk_q=cfg.attn_chunk_q,
                                        chunk_kv=cfg.attn_chunk_kv)
@@ -81,9 +89,10 @@ def encode(params, src_embeds, cfg: ModelConfig):
     cdt = _cdt(cfg)
     x = src_embeds.to(cdt)
     positions = _positions(x)
+    sp = act_sharding.sequence_parallel(x.shape)
 
     def body(h, lp):
-        h = constrain(h)
+        h = unconstrain(h, sp)
         lp = gather_layer_params(lp)
         z = layers.rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q, k, v = attention.qkv_project(lp["attn"], z, z, cfg, cdt)
@@ -92,17 +101,22 @@ def encode(params, src_embeds, cfg: ModelConfig):
         ctx = _flash(q, k, v, cfg, causal=False)
         h = h + attention.attn_output(lp["attn"], ctx.to(cdt), cdt)
         z = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        return h + layers.mlp(lp["mlp"], z, cdt)
+        return constrain(h + layers.mlp(lp["mlp"], z, cdt))
 
-    x = scan_layers_remat(body, x, unstack(params["encoder"],
-                                           cfg.n_encoder_layers), cfg)
-    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    x = scan_layers_remat(body, constrain(x), unstack(
+        params["encoder"], cfg.n_encoder_layers), cfg)
+    return layers.rmsnorm(params["enc_norm"], unconstrain(x, sp),
+                          cfg.norm_eps)
+
+
+def _cross(lp):
+    """The cross-attention's projections without their biases."""
+    return {k: v for k, v in lp["cross_attn"].items()
+            if k in ("wq", "wk", "wv", "wo")}
 
 
 def _cross_kv(lp, enc_out, cdt):
-    w = lp["cross_attn"]
-    return (attention._project(enc_out, w["wk"], cdt),
-            attention._project(enc_out, w["wv"], cdt))
+    return attention.kv_project(_cross(lp), enc_out, cdt)
 
 
 def _dec_block(lp, h, enc_out, cfg, cdt, positions, *, self_cache=None,
@@ -128,7 +142,7 @@ def _dec_block(lp, h, enc_out, cfg, cdt, positions, *, self_cache=None,
 
     # cross attention (not causal, encoder length fixed)
     z = layers.rmsnorm(lp["ln_x"], h, cfg.norm_eps)
-    qx = attention._project(z, lp["cross_attn"]["wq"], cdt)
+    qx = attention.q_project(_cross(lp), z, cdt)
     kx, vx = _cross_kv(lp, enc_out, cdt) if cross_kv is None else cross_kv
     ctx = _flash(qx, kx, vx, cfg, causal=False)
     h = h + attention.attn_output(lp["cross_attn"], ctx.to(cdt), cdt)
@@ -142,14 +156,17 @@ def forward_features(params, batch, cfg: ModelConfig):
     enc_out = encode(params, batch["src_embeds"], cfg)
     x = layers.embed(params["embed"], batch["tokens"], cdt)
     positions = _positions(x)
-    def body(h, lp):
-        h = constrain(h)
-        lp = gather_layer_params(lp)
-        return _dec_block(lp, h, enc_out, cfg, cdt, positions)
+    sp = act_sharding.sequence_parallel(x.shape)
 
-    x = scan_layers_remat(body, x, unstack(params["decoder"], cfg.n_layers),
-                          cfg)
-    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    def body(h, lp):
+        h = unconstrain(h, sp)
+        lp = gather_layer_params(lp)
+        return constrain(_dec_block(lp, h, enc_out, cfg, cdt, positions))
+
+    x = scan_layers_remat(body, constrain(x), unstack(params["decoder"],
+                                                      cfg.n_layers), cfg)
+    return layers.rmsnorm(params["final_norm"], unconstrain(x, sp),
+                          cfg.norm_eps)
 
 
 def head(params, x, cfg: ModelConfig):

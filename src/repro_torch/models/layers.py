@@ -12,10 +12,13 @@ float32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import act_sharding, tp
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -32,6 +35,26 @@ def on(gen: torch.Generator, device=None) -> torch.device:
     return torch.device(device) if device is not None else gen.device
 
 
+_SINKS: list = []
+
+
+@contextlib.contextmanager
+def leaf_sink(fn):
+    """Inside the block every weight :func:`dense_init` and :func:`normal`
+    draw is passed through ``fn`` as soon as it is drawn, and the init
+    keeps what ``fn`` returns (the serving engine keeps the rank's block
+    of each, so that no rank holds the whole tree)."""
+    _SINKS.append(fn)
+    try:
+        yield
+    finally:
+        _SINKS.pop()
+
+
+def _drawn(w):
+    return _SINKS[-1](w) if _SINKS else w
+
+
 def dense_init(gen: torch.Generator, shape, in_axis_size,
                dtype=torch.float32, lead=(), device=None):
     """Truncated-normal fan-in init (the MaxText/T5 default): N(0, 1)
@@ -40,7 +63,7 @@ def dense_init(gen: torch.Generator, shape, in_axis_size,
     w = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
                     device=on(gen, device))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w.mul_(std).to(dtype)
+    return _drawn(w.mul_(std).to(dtype))
 
 
 def normal(gen: torch.Generator, shape, scale, dtype=torch.float32, lead=(),
@@ -49,7 +72,7 @@ def normal(gen: torch.Generator, shape, scale, dtype=torch.float32, lead=(),
     w = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
                     device=on(gen, device))
     w.normal_(generator=gen)
-    return w.mul_(scale).to(dtype)
+    return _drawn(w.mul_(scale).to(dtype))
 
 
 # -- RMSNorm ------------------------------------------------------------------
@@ -119,6 +142,16 @@ def mlp_init(gen, d_model, d_ff, dtype=torch.float32, lead=(), device=None):
 
 
 def mlp(params, x, compute_dtype):
+    """SwiGLU.  Under tensor parallelism with ``wi_gate``/``wi_up``
+    column blocks (F on ``model``), ``wo`` is row-parallel and the output
+    one psum."""
+    ax = act_sharding.tp_axis(params["wi_gate"], 1)
+    return tp.psum(mlp_partial(params, tp.copy(x, ax), compute_dtype), ax)
+
+
+def mlp_partial(params, x, compute_dtype):
+    """The SwiGLU of ``x`` on the rank's F columns: its term of the sum
+    over ``model`` (the whole output when the weights are whole)."""
     h = F.silu(x @ params["wi_gate"].to(compute_dtype))
     h = h * (x @ params["wi_up"].to(compute_dtype))
     return h @ params["wo"].to(compute_dtype)
@@ -131,14 +164,38 @@ def embed_init(gen, vocab, d_model, dtype=torch.float32, device=None):
 
 
 def embed(params, tokens, compute_dtype):
+    """Rows of the table for ``tokens``.  With vocab rows on ``model``
+    the lookup is vocab-parallel: the rank's rows, zeros for the others'
+    tokens, one psum; with D on ``model`` the columns are assembled."""
+    table = params["embedding"]
+    dim = act_sharding.tp_dim(table)
+    ax = act_sharding.model_axis()
+    if dim == 0:
+        local = tokens.long() - tp.offset(table.shape[0], ax)
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = table[torch.where(mine, local, 0)]
+        rows = torch.where(mine[..., None], rows, 0.0)
+        return tp.psum(rows.to(compute_dtype), ax)
     # gather then cast: the same values as the reference's cast-then-gather,
     # without converting the whole table on every call
-    return params["embedding"][tokens.long()].to(compute_dtype)
+    rows = table[tokens.long()].to(compute_dtype)
+    return tp.assemble(rows, ax, -1) if dim == 1 else rows
+
+
+def _vocab_logits(x, w_t, ax):
+    """float32 ``x @ w_t`` with the vocab on ``model`` when ``ax`` is that
+    axis: the rank's columns from a replicated ``x``, assembled."""
+    return tp.assemble(tp.copy(x.float(), ax) @ w_t.float(), ax, -1)
 
 
 def unembed(params, x):
     """Logits in float32 for a stable softmax/loss."""
-    return x.float() @ params["embedding"].float().T
+    table = params["embedding"]
+    dim = act_sharding.tp_dim(table)
+    if dim == 1:                  # D on 'model': assemble the table
+        table = tp.assemble(table, act_sharding.model_axis(), 1)
+    return _vocab_logits(x, table.T, act_sharding.model_axis()
+                         if dim == 0 else None)
 
 
 def lm_head_init(gen, d_model, vocab, dtype=torch.float32, device=None):
@@ -147,4 +204,7 @@ def lm_head_init(gen, d_model, vocab, dtype=torch.float32, device=None):
 
 
 def lm_head(params, x):
-    return x.float() @ params["kernel"].float()
+    """Logits in float32; with the vocab columns on ``model`` the rank's
+    columns, assembled before the loss and the sampler."""
+    kernel = params["kernel"]
+    return _vocab_logits(x, kernel, act_sharding.tp_axis(kernel, 1))

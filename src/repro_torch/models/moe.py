@@ -16,6 +16,15 @@ to the routed output.
 
 ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk`` does
 not promise an order, so the top k come from a stable descending sort.
+
+Under tensor parallelism (``parallel.tp``) the router's expert columns and
+the experts are the rank's: the (b, s, E) router logits are assembled
+before the softmax and the top-k (so ties resolve exactly as on one
+device), each rank fills and computes its experts' slots of the dispatch
+buffer, and the combine -- with the shared experts' row-parallel term --
+is one psum over ``model``.  Tokens are replicated along ``model``, so no
+all-to-all moves them.  Capacity and the dropped tokens are the
+reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import act_sharding, tp
 from repro_torch.parallel.act_sharding import constrain_ec, constrain_tokens
 
 
@@ -60,9 +70,18 @@ def moe_layer(params, x, cfg, compute_dtype):
     e, k = cfg.n_experts, cfg.n_experts_per_token
     cap = expert_capacity(cfg, s)
     dev = x.device
+    ax = act_sharding.model_axis()
+    # experts on 'model': the rank's experts [lo, hi), slots lo * C on
+    ex = act_sharding.tp_axis(params["wi_gate"], 0)
+    lo = tp.offset(params["wi_gate"].shape[0], ex)
+    hi = lo + params["wi_gate"].shape[0]
+    xl = tp.copy(x, ax)        # x entering the local compute (one psum back)
+    local = lambda on: xl if on is not None else x
 
-    logits = x.float() @ params["router"]                      # (b, s, E)
-    probs = torch.softmax(logits, dim=-1)
+    router = params["router"]
+    r_ax = act_sharding.tp_axis(router, 1)
+    logits = tp.assemble(local(r_ax).float() @ router, r_ax, -1)
+    probs = torch.softmax(logits, dim=-1)                      # (b, s, E)
     top_p, top_e = top_k(probs, k)                             # (b, s, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
@@ -82,13 +101,13 @@ def moe_layer(params, x, cfg, compute_dtype):
     flat_tok = torch.arange(s * k, device=dev).expand(b, s * k)
     # kept slots are distinct; dropped ones all land in the discarded bucket
     src_of_slot.scatter_(1, slot.reshape(b, s * k), flat_tok)
-    src_of_slot = src_of_slot[:, :e * cap]                     # (b, E*C)
+    src_of_slot = src_of_slot[:, lo * cap:hi * cap]            # (b, E*C)
 
-    x_flat = torch.repeat_interleave(x.to(compute_dtype), k, dim=1)
+    x_flat = torch.repeat_interleave(local(ex).to(compute_dtype), k, dim=1)
     x_flat = torch.cat([x_flat, x_flat.new_zeros(b, 1, d)], dim=1)
     xe = torch.gather(x_flat, 1, src_of_slot[..., None].expand(-1, -1, d))
     xe = constrain_ec(xe)                       # the reference's a2a
-    xe = xe.reshape(b, e, cap, d)
+    xe = xe.reshape(b, hi - lo, cap, d)
 
     # expert FFN (SwiGLU) over stacked weights
     h = F.silu(torch.einsum("becd,edf->becf", xe,
@@ -97,18 +116,26 @@ def moe_layer(params, x, cfg, compute_dtype):
                          params["wi_up"].to(compute_dtype))
     ye = torch.einsum("becf,efd->becd", h, params["wo"].to(compute_dtype))
 
-    # combine: gather each token's k outputs
-    ye = constrain_tokens(ye.reshape(b, e * cap, d))
+    # combine: gather each token's k outputs (the rank's slots; the
+    # others' read a zero row)
+    ye = constrain_tokens(ye.reshape(b, (hi - lo) * cap, d))
     ye = torch.cat([ye, ye.new_zeros(b, 1, d)], dim=1)
-    slot_flat = slot.reshape(b, s * k)
+    slot_flat = slot.reshape(b, s * k) - lo * cap
+    slot_flat = torch.where((slot_flat >= 0) & (slot_flat < (hi - lo) * cap),
+                            slot_flat, (hi - lo) * cap)
     yk = torch.gather(ye, 1, slot_flat[..., None].expand(-1, -1, d))
     yk = yk.reshape(b, s, k, d)
     wk = torch.where(keep, top_p, 0.0).to(compute_dtype)
-    y = (yk * wk[..., None]).sum(dim=2)
+    y = (yk * tp.copy(wk, ex)[..., None]).sum(dim=2)
 
     if "shared" in params:
-        y = y + layers.mlp(params["shared"], x, compute_dtype)
-    return y
+        sh = params["shared"]
+        s_ax = act_sharding.tp_axis(sh["wi_gate"], 1)
+        ys = layers.mlp_partial(sh, local(s_ax), compute_dtype)
+        if s_ax is not None and ex is not None:
+            return tp.psum(y + ys, ax)                # one combine psum
+        return tp.psum(y, ex) + tp.psum(ys, s_ax)
+    return tp.psum(y, ex)
 
 
 def load_balancing_loss(router_logits, top_e, n_experts):

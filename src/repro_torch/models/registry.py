@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import act_sharding
+from repro_torch.tree import flatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +33,9 @@ def make_arch(cfg: ModelConfig) -> Arch:
     the params on ``gen``'s device (``device="meta"``: shapes and dtypes
     only); ``init_cache(bsz, max_len, enc_len=None, device=None)``
     allocates (``enc_len``: the encoder-decoder's cross K/V length,
-    ``max_len`` when not given; the other families ignore it)."""
+    ``max_len`` when not given; the other families ignore it).  Outside
+    ``act_sharding.zero3`` the functions that take params raise for a
+    leaf that is not its whole shape (a mesh's block)."""
     if cfg.family == "encdec":
         m = encdec
         init_cache = lambda bsz, max_len, enc_len=None, device=None: \
@@ -41,14 +45,27 @@ def make_arch(cfg: ModelConfig) -> Arch:
         m = transformer
         init_cache = lambda bsz, max_len, enc_len=None, device=None: \
             transformer.init_cache(cfg, bsz, max_len, device=device)
+    shapes = {}
+
+    def whole(p):
+        if not act_sharding.sharded():
+            if not shapes:
+                keys, leaves = flatten(m.init_params(
+                    torch.Generator(), cfg, device="meta"))
+                shapes.update((k, tuple(x.shape))
+                              for k, x in zip(keys, leaves))
+            act_sharding.check_whole(p, shapes)
+        return p
+
     return Arch(
         cfg=cfg,
         init=lambda gen, device=None: m.init_params(gen, cfg, device=device),
-        forward=lambda p, b: m.forward(p, b, cfg),
-        forward_features=lambda p, b: m.forward_features(p, b, cfg),
-        head=lambda p, x: m.head(p, x, cfg),
-        prefill=lambda p, b, max_len: m.prefill(p, b, cfg, max_len),
-        decode_step=lambda p, b, c, pos: m.decode_step(p, b, c, pos, cfg),
+        forward=lambda p, b: m.forward(whole(p), b, cfg),
+        forward_features=lambda p, b: m.forward_features(whole(p), b, cfg),
+        head=lambda p, x: m.head(whole(p), x, cfg),
+        prefill=lambda p, b, max_len: m.prefill(whole(p), b, cfg, max_len),
+        decode_step=lambda p, b, c, pos: m.decode_step(whole(p), b, c, pos,
+                                                       cfg),
         init_cache=init_cache,
     )
 

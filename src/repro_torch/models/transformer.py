@@ -10,9 +10,13 @@ reference's two levels, per group of layers and per layer
 (``torch.utils.checkpoint``, non-reentrant), which changes no value.  The
 reference's sharding hooks (``parallel.act_sharding``: ``constrain``,
 ``gather_layer_params``) are called at its places; without a registered
-mesh they are identities, and inside a sharded train step
-``gather_layer_params`` gathers each layer's weights from the rank's
-blocks (inside the per-layer checkpoint, so the backward gathers again).
+mesh they are identities.  Inside ``act_sharding.zero3`` (a sharded train
+step, or the serving engine on a mesh) ``gather_layer_params`` gathers
+each layer's weights from the rank's blocks (inside the per-layer
+checkpoint, so the backward gathers again), keeping their ``model``
+blocks: the blocks compute tensor-parallel (``models.attention``,
+``models.moe``, ``models.layers``), and ``init_cache(mesh=)`` lays the
+caches out by ``parallel.sharding.cache_specs``.
 
 Three entry points:
   * ``forward``      -- full-sequence logits.
@@ -33,7 +37,10 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.act_sharding import constrain, gather_layer_params
+from repro_torch.parallel import act_sharding, tp
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.act_sharding import (constrain, gather_layer_params,
+                                              unconstrain)
 from repro_torch.tree import flatten, unflatten
 
 
@@ -184,18 +191,28 @@ def _dequantize_kv(q, scale, dtype):
     return q.to(dtype) * scale.to(dtype)
 
 
-def _write(buf, x, pos):
+def _write(buf, x, pos, seq_axis=None):
     """``lax.dynamic_update_slice_in_dim(buf, x, pos, axis=1)`` in place:
-    the start clamped so that the update fits, as XLA clamps it."""
-    start = max(0, min(int(pos), buf.shape[1] - x.shape[1]))
-    buf[:, start:start + x.shape[1]] = x.to(buf.dtype)
+    the start clamped so that the update fits, as XLA clamps it.  With
+    ``seq_axis`` ``buf`` is the rank's block of the sequence, and the rank
+    writes the positions its block holds."""
+    n, size = x.shape[1], buf.shape[1]
+    lo = tp.offset(size, seq_axis)
+    total = size * seq_axis.size if tp.active(seq_axis) else size
+    start = max(0, min(int(pos), total - n))
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        buf[:, a - lo:b - lo] = x[:, a - start:b - start].to(buf.dtype)
 
 
-def _attend(q, k, v, cfg, cdt, cache, pos):
-    """Attention of the block, writing the new K/V into ``cache`` (in
-    place) when there is one; returns the context."""
+def _attend(q, k, v, cfg, cdt, cache, pos, seq_axis=None):
+    """Attention of the block on the rank's query heads, writing the new
+    K/V into ``cache`` (in place) when there is one; returns the context
+    (of every head after a decode over a sequence-sharded cache)."""
+    kl = attention.local_kv(k, cfg, q.shape[2])
+    vl = attention.local_kv(v, cfg, q.shape[2])
     prefill = lambda: attention.chunked_attention(
-        q, k, v, causal=True, chunk_q=cfg.attn_chunk_q,
+        q, kl, vl, causal=True, chunk_q=cfg.attn_chunk_q,
         chunk_kv=cfg.attn_chunk_kv)
     if cache is None:
         return prefill()
@@ -203,26 +220,30 @@ def _attend(q, k, v, cfg, cdt, cache, pos):
         kc, vc, ks, vs = cache
         kq, ksc = _quantize_kv(k)
         vq, vsc = _quantize_kv(v)
-        _write(kc, kq, pos)
-        _write(vc, vq, pos)
-        _write(ks, ksc, pos)
-        _write(vs, vsc, pos)
-        if q.shape[1] == 1:
-            return attention.decode_attention(
-                q, _dequantize_kv(kc, ks, cdt), _dequantize_kv(vc, vs, cdt),
-                pos + 1)
-        return prefill()
-    kc, vc = cache
-    _write(kc, k, pos)
-    _write(vc, v, pos)
-    if q.shape[1] == 1:
-        return attention.decode_attention(q, kc, vc, pos + 1)
-    # prefill: queries attend causally within the prompt only
-    return prefill()
+        for buf, x in ((kc, kq), (vc, vq), (ks, ksc), (vs, vsc)):
+            _write(buf, x, pos, seq_axis)
+        if q.shape[1] != 1:
+            return prefill()
+        kc, vc = _dequantize_kv(kc, ks, cdt), _dequantize_kv(vc, vs, cdt)
+    else:
+        kc, vc = cache
+        _write(kc, k, pos, seq_axis)
+        _write(vc, v, pos, seq_axis)
+        if q.shape[1] != 1:
+            # prefill: queries attend causally within the prompt only
+            return prefill()
+    if tp.active(seq_axis):                   # every head, every block
+        q = tp.assemble(q, act_sharding.model_axis(), 2)
+        return attention.decode_attention(q, kc, vc, pos + 1, seq_axis)
+    return attention.decode_attention(q, attention.local_kv(kc, cfg,
+                                                            q.shape[2]),
+                                      attention.local_kv(vc, cfg,
+                                                         q.shape[2]),
+                                      pos + 1)
 
 
 def _attn_mlp_block(p, x, cfg, cdt, positions, *, cache=None, pos=None,
-                    use_moe=False):
+                    use_moe=False, seq_axis=None):
     """Pre-norm attention + MLP/MoE.  cache: (k, v) or (k, v, k_scale,
     v_scale) views of this layer's cache, written in place."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -235,7 +256,7 @@ def _attn_mlp_block(p, x, cfg, cdt, positions, *, cache=None, pos=None,
     else:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    ctx = _attend(q, k, v, cfg, cdt, cache, pos)
+    ctx = _attend(q, k, v, cfg, cdt, cache, pos, seq_axis)
     x = x + attention.attn_output(p["attn"], ctx.to(cdt), cdt)
 
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -257,14 +278,15 @@ def _ssm_block(p, x, cfg, cdt, *, state=None):
     return x + y, (h_new, conv_new)
 
 
-def _shared_block(p, x, x0, cfg, cdt, positions, *, cache=None, pos=None):
+def _shared_block(p, x, x0, cfg, cdt, positions, *, cache=None, pos=None,
+                  seq_axis=None):
     """Zamba2 shared attention block on concat([x, x0])."""
     inp = torch.cat([x, x0], dim=-1) @ p["in_proj"].to(cdt)
     h = layers.rmsnorm(p["ln1"], inp, cfg.norm_eps)
     q, k, v = attention.qkv_project(p["attn"], h, h, cfg, cdt)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    ctx = _attend(q, k, v, cfg, cdt, cache, pos)
+    ctx = _attend(q, k, v, cfg, cdt, cache, pos, seq_axis)
     y = attention.attn_output(p["attn"], ctx.to(cdt), cdt)
     y = y + layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], y, cfg.norm_eps),
                        cdt)
@@ -302,37 +324,46 @@ def _ssm_layer(lp, x, cfg, cdt, caches, li):
 def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
     """Walk the stacked layers.  caches=None -> training (no cache IO,
     :func:`scan_layers_remat`); otherwise a dict of stacked caches that is
-    read and rewritten in place."""
+    read and rewritten in place.  In training under sequence parallelism
+    (``act_sharding.sequence_parallel``) the residual between layers is
+    the rank's sequence block: each layer assembles it on entry and cuts
+    its output (``constrain``)."""
     L = cfg.n_layers
     lps = unstack(params["layers"], L)
+    sp = caches is None and act_sharding.sequence_parallel(x.shape)
+    sharded = act_sharding.sharded()
     if cfg.family in ("dense", "moe", "vlm"):
         use_moe = cfg.family == "moe"
         if caches is None:
             def body(h, lp):
-                h = constrain(h)
+                h = unconstrain(h, sp)
                 lp = gather_layer_params(lp)
-                return _attn_mlp_block(lp, h, cfg, cdt, positions,
-                                       use_moe=use_moe)
+                return constrain(_attn_mlp_block(lp, h, cfg, cdt, positions,
+                                                 use_moe=use_moe))
 
-            return scan_layers_remat(body, x, lps, cfg), None
+            return unconstrain(scan_layers_remat(body, constrain(x), lps,
+                                                 cfg), sp), None
         names = (["k", "v", "k_scale", "v_scale"]
                  if "k_scale" in caches else ["k", "v"])
+        seq_axis = act_sharding.cache_seq_axis(caches["k"])
         for li in range(L):
             if x.shape[1] != 1:          # prefill (decode: no hook)
                 x = constrain(x)
-            x = _attn_mlp_block(lps[li], x, cfg, cdt, positions,
+            lp = gather_layer_params(lps[li]) if sharded else lps[li]
+            x = _attn_mlp_block(lp, x, cfg, cdt, positions,
                                 cache=tuple(caches[n][li] for n in names),
-                                pos=pos, use_moe=use_moe)
+                                pos=pos, use_moe=use_moe, seq_axis=seq_axis)
         return x, caches
 
     if cfg.family == "ssm":
         if caches is None:
             def body(h, lp):
-                h = constrain(h)
+                h = unconstrain(h, sp)
                 lp = gather_layer_params(lp)
-                return _ssm_block(lp, h, cfg, cdt)[0]
+                return constrain(_ssm_block(lp, h, cfg, cdt)[0])
 
-            return scan_layers_remat(body, x, lps, cfg), None
+            return unconstrain(scan_layers_remat(body, constrain(x), lps,
+                                                 cfg), sp), None
         for li in range(L):
             x = _ssm_layer(gather_layer_params(lps[li]), constrain(x), cfg,
                            cdt, caches, li)
@@ -343,16 +374,19 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
         n_groups = -(-L // every)
         x0 = x
         li = 0
+        if caches is None:
+            x = constrain(x)
         for g in range(n_groups):
             size = min(every, L - g * every)
             if caches is None:
                 x = scan_layers_remat(
-                    lambda h, lp: _ssm_block(lp, constrain(h), cfg, cdt)[0],
+                    lambda h, lp: constrain(_ssm_block(
+                        lp, unconstrain(h, sp), cfg, cdt)[0]),
                     x, lps[li:li + size], cfg)
                 # shared attention block after each group (rematted: its
                 # flash residuals would otherwise persist per invocation)
-                shared = lambda h, h0, p: _shared_block(p, h, h0, cfg, cdt,
-                                                        positions)
+                shared = lambda h, h0, p: constrain(_shared_block(
+                    p, unconstrain(h, sp), h0, cfg, cdt, positions))
                 x = (checkpoint(shared, x, x0, params["shared_attn"])
                      if remat_on(cfg) else shared(x, x0,
                                                   params["shared_attn"]))
@@ -364,8 +398,10 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
             # shared attention block after each group
             x = _shared_block(params["shared_attn"], x, x0, cfg, cdt,
                               positions, cache=(caches["k"][g],
-                                                caches["v"][g]), pos=pos)
-        return x, caches
+                                                caches["v"][g]), pos=pos,
+                              seq_axis=act_sharding.cache_seq_axis(
+                                  caches["k"]))
+        return (unconstrain(x, sp), None) if caches is None else (x, caches)
 
     raise ValueError(cfg.family)
 
@@ -397,8 +433,14 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
-               device=None) -> dict:
-    """Allocate decode caches (stacked over layers) on ``device``."""
+               device=None, mesh=None) -> dict:
+    """Allocate decode caches (stacked over layers) on ``device``; with
+    ``mesh`` this rank's block of each under ``parallel.sharding
+    .cache_specs`` (each leaf remembers its spec)."""
+    if mesh is not None:
+        shapes = init_cache(cfg, batch_size, max_len, dtype, "meta")
+        return act_sharding.cache_blocks(
+            shapes, shd.cache_specs(cfg, shapes, mesh), mesh, device)
     dtype = dtype or _cdt(cfg)
     kvh, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
@@ -441,7 +483,9 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
     """Process the prompt; returns (last_token_logits, caches)."""
     cdt = _cdt(cfg)
     x, positions = _embed_inputs(params, batch, cfg, cdt)
-    caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    mesh = act_sharding.sharded_mesh()
+    caches = init_cache(cfg, act_sharding.global_batch(x.shape[0]), max_len,
+                        device=x.device, mesh=mesh)
     x, caches = _run_layers(params, x, cfg, cdt, positions, caches=caches,
                             pos=0)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -81,15 +81,18 @@ def assemble(mesh, x, spec, extra=()):
     return psum(buf, mesh.axes(names))
 
 
+def _full(block, mesh, spec, cast):
+    """The full leaf of ``block``, rounded through ``cast`` when given."""
+    full = assemble(mesh, block if cast is None else block.to(cast), spec)
+    return full.to(block.dtype) if cast is not None else full.view_as(full)
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, block, mesh, spec, grad_axes, cast):
         ctx.mesh, ctx.spec, ctx.grad_axes, ctx.cast = (mesh, spec,
                                                        grad_axes, cast)
-        x = block if cast is None else block.to(cast)
-        full = assemble(mesh, x, spec)
-        return full.to(block.dtype) if cast is not None else \
-            full.view_as(full)
+        return _full(block, mesh, spec, cast)
 
     @staticmethod
     def backward(ctx, g):
@@ -101,9 +104,12 @@ class _Gather(torch.autograd.Function):
 
 def gather(block, mesh, spec, grad_axes=(), cast=None):
     """The full leaf of ``block`` (this rank's block under ``spec``),
-    differentiable; see the module docstring."""
-    return _Gather.apply(block, mesh, padded(spec, block.dim()),
-                         tuple(grad_axes), cast)
+    differentiable; see the module docstring.  Where no gradient flows
+    (serving) the same values without the autograd node."""
+    spec = padded(spec, block.dim())
+    if torch.is_grad_enabled() and block.requires_grad:
+        return _Gather.apply(block, mesh, spec, tuple(grad_axes), cast)
+    return _full(block, mesh, spec, cast)
 
 
 class Layout(NamedTuple):

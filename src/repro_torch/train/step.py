@@ -24,13 +24,17 @@ over the batch axes and keeps the rank's block; the optimizer updates
 blocks, its whole-leaf reductions summed across ranks
 (``train.optim``'s ``shards=``).
 
-In this slice the ``model`` axis shards storage, not compute: under
-``"2d"`` the ranks along ``model`` take the same batch block and compute
-the same thing on gathered weights, and their gradients are summed over
-the batch axes only.  A batch that does not divide the batch axes is
-sequence-sharded by the rules; its ranks gather the sequence (every rank
-computes the whole batch) and sum no gradient.  Tensor-parallel compute
-on ``model`` is the next slice's.
+Under ``"2d"`` the ``model`` axis computes tensor-parallel
+(``parallel.tp``): the layers' weights are gathered over the batch axes
+only, each rank keeping its ``model`` block (Mamba layers are still
+gathered whole), and the ranks along ``model`` compute their heads, FFN
+columns, vocab columns and experts of the same batch block, the residual
+between layers held as the rank's sequence block
+(``act_sharding.constrain``).  The loss is replicated along ``model``, so
+every gradient is the rank's block, summed over the batch axes only.  A
+batch that does not divide the batch axes is sequence-sharded by the
+rules; its ranks gather the sequence (every rank computes the whole batch)
+and sum no gradient.
 """
 from __future__ import annotations
 
@@ -213,6 +217,20 @@ def local_batch(mesh, batch, b_specs):
     return unflatten(batch, out), axes
 
 
+def gather_params(blocks, keys, specs, mesh, roots, grad_axes=()):
+    """The params tree of this rank's ``blocks`` for the model: the
+    stacks under ``roots`` left as blocks (the model gathers them one
+    layer at a time), every other leaf gathered to its compute layout
+    (``act_sharding.gather_leaf``: its ``model`` block kept under tensor
+    parallelism)."""
+    _, leaves = flatten(blocks)
+    model = act_sharding.model_axis()
+    return unflatten(blocks, [
+        x if k.split("/")[0] in roots
+        else act_sharding.gather_leaf(k, x, mesh, s, grad_axes, None, model)
+        for k, x, s in zip(keys, leaves, specs)])
+
+
 def make_sharded_step(arch, optimizer, mesh, shapes, specs, b_specs, *,
                       accum_steps: int = 1, loss_chunk: int = 512):
     """``step(state, batch) -> (state, metrics)`` on this rank's blocks of
@@ -226,11 +244,8 @@ def make_sharded_step(arch, optimizer, mesh, shapes, specs, b_specs, *,
 
     def loss_fn(grad_axes):
         def fn(blocks, batch):
-            _, leaves = flatten(blocks)
-            params = unflatten(blocks, [
-                x if k.split("/")[0] in roots
-                else zero.gather(x, mesh, s, grad_axes)
-                for k, x, s in zip(pkeys, leaves, pspecs)])
+            params = gather_params(blocks, pkeys, pspecs, mesh, roots,
+                                   grad_axes)
             feats = arch.forward_features(params, batch)
             nll, hits, cnt = chunked_ce_sums(
                 lambda x: arch.head(params, x), feats, batch["labels"],

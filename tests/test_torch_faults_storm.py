@@ -1,59 +1,24 @@
 """The port's fault process on the ``outage_storm`` preset against the
-JAX package under Poisson traffic: the engine (both radio modes) and the
-env.  The storm's A3, mobility and fading make the eager
-reference compile a set of primitives of its own, so these cases have a
-file of their own beside tests/test_torch_faults.py, whose helpers and
-contract they share: ``cell_state``, attachment and RB grants exact,
+JAX package under Poisson traffic: the engine in the dense radio mode
+(the incremental mode: ``tests/test_torch_faults_storm_incremental.py``;
+the env: ``tests/test_torch_faults_storm_env.py``).  The storm's A3,
+mobility and fading make the eager reference compile a set of primitives
+of its own, so these cases have a file of their own beside
+tests/test_torch_faults.py, whose helpers and contract they share: ``cell_state``, attachment and RB grants exact,
 throughput and backlog rtol 1e-4; Poisson traffic runs the reference
 eagerly.
 """
-import jax
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: F401  (the parity suites import both packages)
 import pytest
-import torch
 
-from repro.env.crrm_env import CrrmEnv as JEnv
-from repro.sim import scenarios as j_scen
-from repro_torch.env.crrm_env import CrrmEnv as TEnv
 from test_torch_faults import check_storm
-from torch_parity import check_env_step, check_state, env_draws, port_of
 
 
 @pytest.mark.parametrize("radio_mode,policy,traffic", [
-    ("dense", "rr", "poisson"), ("incremental", "rr", "poisson")])
+    ("dense", "rr", "poisson")])
 def test_storm_engine_matches_reference(radio_mode, policy, traffic):
-    """The Poisson-traffic cases of ``test_torch_faults.check_storm`` (rr
-    grants; the reference eager); the full-buffer ones run in
+    """The dense Poisson-traffic case of ``test_torch_faults.check_storm``
+    (rr grants; the reference eager); the incremental one runs in
+    tests/test_torch_faults_storm_incremental.py, the full-buffer ones in
     tests/test_torch_faults.py."""
     check_storm(radio_mode, policy, traffic)
-
-
-def test_outage_storm_env_matches_reference():
-    """``CrrmEnv(scenario="outage_storm")`` at 24 UEs x 6 cells with
-    telemetry: reset and two steps (one with an action and a fairness
-    override) on the reference's draws.  The reference cannot autoreset
-    under faults (ROADMAP queue 3), so the port's ``step_autoreset`` is
-    held to a fresh episode of its own: the fault leaf restarts all-UP."""
-    params = j_scen.make_scenario("outage_storm", n_ues=24, n_cells=6)
-    kw = dict(episode_tti=2, tti_per_step=1, telemetry=True)
-    ref = JEnv(params=params, **kw)
-    port = TEnv(sim=port_of(ref.sim), draws=env_draws(ref), **kw)
-    sj, _ = ref.reset(jax.random.PRNGKey(3))
-    st, _ = port.reset(3)
-    check_state(st, sj)
-    act = np.random.default_rng(0).uniform(
-        0.0, port.max_cell_power_W, port.action_shape).astype(np.float32)
-    with jax.disable_jit(True):
-        out_j = ref.step(sj, ref.uniform_action())
-        out_t = port.step(st, port.uniform_action())
-        check_env_step(out_t, out_j)
-        out_j = ref.step(out_j[0], jnp.asarray(act), jnp.float32(0.2))
-        out_t = port.step(out_t[0], act, 0.2)
-        check_env_step(out_t, out_j)
-    assert bool(out_t[3]) and out_t[0].cell_state.shape == (6,)
-    s_ar, *_ = port.step_autoreset(out_t[0], None, 7)
-    fresh, _ = port.reset(7)
-    assert torch.equal(s_ar.cell_state, torch.zeros(6, dtype=torch.int32))
-    for a, b in zip(s_ar, fresh):
-        assert b is None or torch.equal(a, b)

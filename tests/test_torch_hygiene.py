@@ -66,7 +66,8 @@ def test_the_scan_covers_every_package_of_the_port():
               "repro_torch.parallel", "repro_torch.parallel.mesh",
               "repro_torch.parallel.sharding",
               "repro_torch.parallel.act_sharding",
-              "repro_torch.parallel.zero", "repro_torch.launch.mesh"):
+              "repro_torch.parallel.zero", "repro_torch.launch.mesh",
+              "repro_torch.parallel.tp", "repro_torch.analysis.hlo"):
         assert m in names, m
 
 
@@ -122,6 +123,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.serve.engine import ServeEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(make_arch(get_config("qwen1.5-0.5b", reduced=True)))
+    from repro_torch.launch import serve as launch_serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--reduced"])
     from repro_torch.launch import train as launch_train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--reduced", "--steps", "1"])

@@ -4,8 +4,8 @@ tiny and tinypod meshes under both strategies.
 
 The reference's choice is read by recording the ``NamedSharding`` its
 hooks hand ``jax.lax.with_sharding_constraint`` (monkeypatched to record
-and return its input) over a shape-only ``AbstractMesh``; the port's hooks
-return their tensor unchanged and expose the choice through
+and return its input) over a shape-only ``AbstractMesh``; the port realises the layouts in its
+tensor-parallel compute (``parallel.tp``), and exposes the choice through
 ``residual_spec``, ``heads_spec``, ``expert_spec``, ``ec_spec``,
 ``tokens_spec`` and ``layer_param_specs``.  ``gather_layer_params`` also
 casts as the reference does (dtypes of every gathered leaf, run under
@@ -116,10 +116,18 @@ def test_layer_gather_choices(arch_id, strategy, recorded):
                 ref_shapes(out), (arch_id, mode, name)
 
 
-def test_hooks_are_identities():
-    """With no registry every hook returns its input; with one the
-    ``constrain*`` hooks still do (a layout never changes values)."""
-    x4, x3 = torch.randn(2, 3, 4, 5), torch.randn(2, 3, 4)
+def test_hooks_are_identities(tmp_path):
+    """With no registry every hook returns its input.  With one, outside a
+    sharded step, the ``constrain*`` hooks still do (a layout never changes
+    values) and ``gather_layer_params`` casts.  Inside ``zero3`` on a
+    mesh whose ``model`` axis holds one rank nothing computes
+    tensor-parallel: ``constrain`` keeps the whole residual, no leaf is a
+    ``model`` block, and a train step's gather casts where the serving
+    engine's does not.  (Two ranks: the residual is cut to the rank's
+    sequence block -- ``tests/test_torch_lm_mesh_tp.py``.)"""
+    import torch_mesh
+    from repro_torch.core.distributed import P, make_mesh
+    x4, x3 = torch.randn(2, 3, 4, 5), torch.randn(2, 4, 4)
     lp = {"attn": {"wq": torch.randn(4, 2, 2)}, "ln1": {"scale": x3[0, 0]}}
     t_act.clear()
     assert t_act.gather_layer_params(lp) is lp
@@ -129,6 +137,8 @@ def test_hooks_are_identities():
         assert fn(x) is x
     assert t_act.heads_spec(x4.shape) is None
     assert t_act.layer_param_specs(lp) is None
+    assert t_act.model_axis() is None and not t_act.sharded()
+    assert not t_act.sequence_parallel(x3.shape)
     try:
         t_act.set_mesh_shardings(meshes("tiny")[1])
         assert t_act.constrain(x3) is x3
@@ -137,5 +147,21 @@ def test_hooks_are_identities():
         np.testing.assert_array_equal(
             g["attn"]["wq"].float().numpy(),
             lp["attn"]["wq"].to(torch.bfloat16).float().numpy())
+        with torch_mesh.one_rank_group(tmp_path):
+            mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+            specs = {"attn/wq": P(None, "model", None),
+                     "ln1/scale": P(None)}
+            for train in (True, False):
+                with t_act.zero3(mesh, specs, (), train=train):
+                    assert t_act.sharded() and t_act.model_axis() is None
+                    assert not t_act.sequence_parallel(x3.shape)
+                    assert t_act.constrain(x3) is x3
+                    g = t_act.gather_layer_params(lp)
+                    assert t_act.tp_dim(g["attn"]["wq"]) is None
+                    np.testing.assert_array_equal(
+                        g["attn"]["wq"].numpy(),
+                        lp["attn"]["wq"].to(torch.bfloat16).float().numpy()
+                        if train else lp["attn"]["wq"].numpy())
+            assert not t_act.sharded()
     finally:
         t_act.clear()

@@ -11,32 +11,17 @@ to rtol 1e-4, every element within 1e-4 * max|g| (measured 0, 1.2e-5 and
 ``tests/test_rl.py:47``.  Over ``optimize_power_plan``'s defaults (4
 segments x 10 TTIs) a one-ulp drained-backlog residue parts the programs
 from the third TTI on (``tests/relax_fixture.py``); the file keeps the
-reference's numbers there for the card to print beside its own, and a
-test holds them equal to the reference.
+reference's numbers there for the card to print beside its own, and
+``tests/test_torch_relax_width_fixture.py`` holds them equal to the
+reference.
 """
 import numpy as np
 import pytest
 import torch
 
-import make_relax_fixture
 import relax_fixture
 
 CPU = torch.device("cpu")
-
-
-def test_diffopt_fixture_holds_the_reference():
-    """The committed inputs are the reference's bit for bit, and its value,
-    gradient and central-difference errors at both horizons to rtol
-    1e-6."""
-    want = make_relax_fixture.build_diffopt()
-    got = relax_fixture.read(relax_fixture.DIFFOPT["scenario"], "diffopt")
-    assert sorted(got) == sorted(want)
-    for k in want:
-        if "_ref_" in k:
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
-                                       err_msg=k)
-        else:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("horizon", ["held", "full"])

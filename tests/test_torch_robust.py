@@ -9,9 +9,8 @@ NaN rollback resuming bit for bit, a corrupt latest checkpoint fallen
 through, a timed-out chunk fenced off, a graceful ``TwinServerDown`` --
 and, where the reference degrades ``pallas -> xla``, the port's contract:
 recovery retries on the same ``inc_backend`` and a persistent failure
-stops with the route named.  The ``outage_storm`` twin is held to the
-reference's (``test_torch_twin.serve_pair``), and the chaos drill runs to
-``CHAOS_OK``.
+stops with the route named.  The ``outage_storm`` twin and the chaos
+drill: ``tests/test_torch_robust_storm.py``.
 """
 import functools
 import threading
@@ -28,7 +27,6 @@ from repro.core.params import CRRM_parameters as JParams
 from repro.mac import engine as j_engine
 from repro.robust import guard as j_guard
 from repro.sim import mobility as j_mob
-from repro.sim import scenarios as j_scen
 from repro.sim.faults import FaultConfig as JFault
 from repro_torch import convert
 from repro_torch.core.crrm import CRRM
@@ -37,10 +35,9 @@ from repro_torch.robust import chaos, guard
 from repro_torch.robust.watchdog import (ChunkTimeout, TwinServerDown,
                                          WatchdogConfig, run_with_timeout)
 from repro_torch.sim import mobility as t_mob
-from repro_torch.sim.faults import FaultConfig as TFault
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.twin.server import TwinServer
-from test_torch_twin import leaves_equal, serve_pair, twin_pair
+from test_torch_twin import leaves_equal
 from torch_parity import np_
 
 STORM = dict(outage_rate_hz=20.0, mean_outage_s=0.03, sleep_rate_hz=20.0,
@@ -329,34 +326,3 @@ def test_failed_rollback_stops_gracefully(tmp_path):
         srv.step_chunk()
     assert isinstance(ei.value.__cause__, ckpt.CheckpointCorrupt)
     assert ei.value.history[-1].startswith("rollback failed")
-
-
-# ------------------------------------------------ the storm and the drill
-def test_fault_kpis_under_outage_storm_match_and_restore(tmp_path):
-    """An ``outage_storm`` twin against the reference's (its KPIs carry
-    ``mean_cells_down``/``reattach_events``), then a bitwise restore of the
-    fault codes."""
-    params = j_scen.make_scenario("outage_storm", n_ues=32, n_cells=6,
-                                  faults=JFault(**STORM))
-    ref, port = twin_pair(params, ckpt_dir=str(tmp_path / "sync"))
-    assert port.faults == TFault(**STORM)
-    full, flips = serve_pair(ref, port, tmp_path / "sync", n_chunks=2)
-    assert full >= 1, flips
-    port.ckpt_dir = str(tmp_path / "own")
-    port.checkpoint()
-    k2 = port.step_chunk()
-    assert "mean_cells_down" in k2 and "reattach_events" in k2
-    cs, state = port.state.cell_state.clone(), port.state
-    assert port.restore() == 20
-    assert port.step_chunk() == k2, "restored faulted twin diverged"
-    assert torch.equal(port.state.cell_state, cs)
-    leaves_equal(port.state, state)
-
-
-def test_chaos_drill_smoke(capsys):
-    chaos.main(["--smoke", "--device", "cpu"])
-    out = capsys.readouterr().out
-    assert "CHAOS_OK" in out
-    assert "survived injected NaN" in out
-    assert "survived injected chunk crash" in out
-    assert "survived corrupt latest checkpoint" in out

@@ -351,11 +351,40 @@ def lm_setup(run):
     return make_arch(cfg), opt, SyntheticLM(cfg.vocab_size, b, s, seed=0)
 
 
+def continue_run(run, mesh, state, steps):
+    """The loop's steps from ``state`` (a global train state held in
+    memory, no checkpoint) to ``steps`` on ``mesh``: the run uninterrupted
+    across a change of mesh.  Returns ``(logged losses, global state)``."""
+    from repro_torch.parallel import act_sharding
+    from repro_torch.train.step import (block_tree, jit_train_step,
+                                        state_specs, unblock_tree)
+    arch, opt, data = lm_setup(run)
+    shapes = {k: torch.empty(np.shape(v), device="meta",
+                             dtype=torch.as_tensor(v).dtype)
+              for k, v in data.batch_at(0).items()}
+    fn = jit_train_step(arch, opt, mesh, shapes)[0]
+    specs = state_specs(arch, opt, mesh)[1]
+    state = block_tree(mesh, state, specs)
+    hist = []
+    try:
+        for i in range(int(state["step"]), steps):
+            batch = {k: torch.as_tensor(v)
+                     for k, v in data.batch_at(i).items()}
+            state, metrics = fn(state, batch)
+            hist.append(float(metrics["loss"]))
+        return hist, unblock_tree(mesh, state, specs)
+    finally:
+        act_sharding.clear()
+
+
 def job_lm_train(job):
     """``train.loop.train(mesh=)`` runs in turn on meshes of all the ranks
     (each ``run``: mesh shape, strategy, checkpoint directory, steps, the
-    :func:`lm_setup` keys): each run's logged losses and the collectives
-    of its steps."""
+    :func:`lm_setup` keys): each run's logged losses, the collectives of
+    its steps and the shapes of its param blocks.  A run with ``switch``
+    (mesh, strategy, steps) then goes on in memory on that mesh
+    (:func:`continue_run`); with ``state`` it also returns its final
+    global train state."""
     from repro_torch.core import distributed as D
     from repro_torch.parallel import mesh as M
     from repro_torch.train.loop import train
@@ -372,16 +401,38 @@ def job_lm_train(job):
                                     ckpt_every=run.get("ckpt_every", 100),
                                     log_every=1,
                                     accum_steps=run.get("accum", 1))
+            keys, leaves = flatten(state["params"])
             res = {"hist": hist, "counts": dict(c.counts),
-                   "wire": c.total_wire_bytes}
+                   "wire": c.total_wire_bytes,
+                   "blocks": {k: tuple(x.shape)
+                              for k, x in zip(keys, leaves)}}
+            if not any(run.get(k) for k in ("switch", "params", "state")):
+                out.append(res)
+                continue
+            specs = state_specs(arch, opt, mesh)[1]
+            state = unblock_tree(mesh, state, specs)
+            if run.get("switch"):
+                shape, strategy, steps = run["switch"]
+                M.set_strategy(strategy)
+                more, state = continue_run(
+                    run, D.make_mesh(shape, ("data", "model"), "cpu"),
+                    state, steps)
+                res["hist"] = hist + more
             if run.get("params"):
-                specs = state_specs(arch, opt, mesh)[1]
-                res["params"] = [_np(x) for x in flatten(unblock_tree(
-                    mesh, state["params"], specs["params"]))[1]]
+                res["params"] = [_np(x)
+                                 for x in flatten(state["params"])[1]]
+            if run.get("state"):
+                res["state"] = _tree_np(state)
         finally:
             M.set_strategy("2d")
         out.append(res)
     return out
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return _np(tree)
 
 
 def _torch_tree(tree):
@@ -438,10 +489,382 @@ def job_optim(job):
     return out
 
 
+# ------------------------------------------------------- tensor parallelism
+def _vjp(fn, tree, args, seed=7):
+    """``(out, grads of tree's leaves, grads of the float args)`` of
+    ``sum(fn(tree, *args) * ct)`` for a cotangent ``ct`` drawn from
+    ``seed`` (the same on every rank)."""
+    keys, leaves = flatten(tree)
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(x.is_floating_point())
+              for x in leaves]
+        fa = [a.detach().requires_grad_(True)
+              if isinstance(a, torch.Tensor) and a.is_floating_point()
+              else a for a in args]
+        out = fn(_unflat(tree, xs), *fa)
+        ct = torch.randn(out.shape, generator=torch.Generator()
+                         .manual_seed(seed))
+        wrt = [x for x in xs if x.requires_grad] + [
+            a for a in fa if isinstance(a, torch.Tensor) and a.requires_grad]
+        gs = torch.autograd.grad((out.float() * ct).sum(), wrt,
+                                 allow_unused=True, materialize_grads=True)
+    n = sum(x.requires_grad for x in xs)
+    return out.detach(), list(gs[:n]), list(gs[n:])
+
+
+def _unflat(tree, leaves):
+    from repro_torch.tree import unflatten
+    return unflatten(tree, leaves)
+
+
+def _tp_case(fn, tree, specs, args, mesh):
+    """The sharded ``fn`` (inside ``act_sharding.zero3``: the tree's
+    leaves this rank's blocks, gathered by ``gather_layer_params``)
+    against the unsharded ``fn`` on the whole tree: outputs, the rank's
+    block of the whole gradients beside the sharded gradients, and the
+    float args' gradients."""
+    from repro_torch.parallel import act_sharding as act
+    keys, leaves = flatten(tree)
+    blocks = _unflat(tree, [mesh.block(x, s) for x, s in zip(leaves,
+                                                            specs)])
+    full, g_full, a_full = _vjp(fn, tree, args)
+    with act.zero3(mesh, dict(zip(keys, specs)), (), train=False):
+        got, g_got, a_got = _vjp(
+            lambda t, *a: fn(act.gather_layer_params(t), *a), blocks, args)
+    return {"out": (_np(full), _np(got)),
+            "grads": {k: (_np(mesh.block(g, s)), _np(h)) for k, g, h, s in
+                      zip(keys, g_full, g_got, specs)},
+            "arg_grads": [(_np(g), _np(h)) for g, h in zip(a_full, a_got)],
+            "blocks": {k: tuple(b.shape) for k, b in
+                       zip(keys, flatten(blocks)[1])}}
+
+
+def _layer0(tree, root, mesh):
+    """Layer 0 of the stack ``tree[root]`` and its leaves' specs (the
+    stacked leaf's spec without its layer dimension)."""
+    from repro_torch.parallel import sharding as shd
+    keys, leaves = flatten(tree[root])
+    specs = [shd.P(*shd._param_rule(f"layers/{k}", tuple(x.shape),
+                                    mesh)[1:]) for k, x in zip(keys, leaves)]
+    return _unflat(tree[root], [x[0] for x in leaves]), specs
+
+
+def _tp_collectives(mesh):
+    """``parallel.tp``'s four functions on rank-dependent tensors over a
+    ``model`` axis of two ranks: values, gradients of a rank-dependent
+    cotangent, and the collectives they made."""
+    from repro_torch.core.distributed import count_collectives
+    from repro_torch.parallel import tp
+    ax = mesh.axes("model")
+    r = float(ax.index)
+    x = torch.arange(6.0).reshape(2, 3) + 10 * r
+    ct = torch.arange(6.0).reshape(2, 3) * (r + 1)
+    out = {}
+    with count_collectives() as c:
+        for name, fn, ctn in (
+                ("psum", lambda t: tp.psum(t, ax), ct),
+                ("copy", lambda t: tp.copy(t, ax), ct),
+                ("assemble", lambda t: tp.assemble(t, ax, 1),
+                 torch.arange(6.0 * ax.size).reshape(2, -1)),
+                ("split", lambda t: tp.split(t, ax, 0), ct[:1])):
+            t = x.clone().requires_grad_(True)
+            y = fn(t)
+            (g,) = torch.autograd.grad((y * ctn).sum(), t)
+            out[name] = (_np(y.detach()), _np(g))
+    out["counts"] = dict(c.counts)
+    out["index"] = ax.index
+    return out
+
+
+def job_tp_modules(job):
+    """The modules of ``job["cases"]`` on the mesh ``job["mesh"]``
+    (:func:`_tp_case`): the embedding, heads, MLP, one attention + MLP or
+    MoE block and the MoE layer, each on the reference's weights."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.models import layers, moe, transformer
+    from repro_torch.parallel import sharding as shd
+    mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
+    out = {"collectives": _tp_collectives(mesh)}
+    for name, c in job["cases"].items():
+        cfg, params = c["cfg"], _torch_tree(c["params"])
+        kind = c["kind"]
+        if kind in ("embed", "unembed", "lm_head"):
+            root, leaf = (("lm_head", "kernel") if kind == "lm_head"
+                          else ("embed", "embedding"))
+            w = params[root][leaf]
+            spec = shd._param_rule(f"{root}/{leaf}", tuple(w.shape), mesh)
+            fn = {"embed": lambda t, tok: layers.embed(t, tok,
+                                                       torch.float32),
+                  "unembed": layers.unembed,
+                  "lm_head": layers.lm_head}[kind]
+            arg = torch.as_tensor(c["x"])
+            out[name] = _tp_case(fn, {leaf: w}, [spec], (arg,), mesh)
+            continue
+        lp, specs = _layer0(params, "layers", mesh)
+        x = torch.as_tensor(c["x"])
+        pos = torch.arange(x.shape[1])[None].expand(x.shape[:2])
+        if kind == "mlp":
+            sub = [s for k, s in zip(flatten(lp)[0], specs)
+                   if k.startswith("mlp/")]
+            out[name] = _tp_case(lambda t, h: layers.mlp(t, h, torch.float32),
+                                 lp["mlp"], sub, (x,), mesh)
+        elif kind == "moe":
+            sub = [s for k, s in zip(flatten(lp)[0], specs)
+                   if k.startswith("moe/")]
+            out[name] = _tp_case(
+                lambda t, h: moe.moe_layer(t, h, cfg, torch.float32),
+                lp["moe"], sub, (x,), mesh)
+        elif kind == "block":
+            out[name] = _tp_case(
+                lambda t, h: transformer._attn_mlp_block(
+                    t, h, cfg, torch.float32, pos,
+                    use_moe=cfg.family == "moe"), lp, specs, (x,), mesh)
+    return out
+
+
+def _sharded_model(arch, params, mesh):
+    """``(blocks, gather)`` of a model's params on ``mesh``: this rank's
+    blocks under the rules, and the function that gathers them for the
+    model inside ``act_sharding.zero3`` (``train.step.gather_params``),
+    with the ``zero3`` arguments."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import (block_tree, gather_params,
+                                        layer_specs, per_layer_roots)
+    spec_tree = shd.infer_param_specs(params, mesh)
+    keys, _ = flatten(params)
+    specs = shd.spec_leaves(spec_tree)
+    roots = per_layer_roots(arch.cfg)
+    blocks = block_tree(mesh, params, spec_tree)
+    lspecs = layer_specs(arch.cfg, params, spec_tree)
+    return blocks, specs, lspecs, lambda b: gather_params(
+        b, keys, specs, mesh, roots)
+
+
+def _forward_case(arch, params, batch, mesh, train):
+    """The sharded forward (logits) against the unsharded one; without
+    ``train`` also every weight's gradient (the rank's block) of a fixed
+    cotangent.  With ``train`` (a sharded train step's compute: bfloat16
+    layer weights, sequence-parallel residuals) the unsharded forward
+    runs on the layer weights rounded as the step rounds them, and the
+    residual carried between layers is recorded."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.parallel import act_sharding as act
+    from repro_torch.train.step import per_layer_roots
+    blocks, specs, lspecs, gather = _sharded_model(arch, params, mesh)
+    keys, leaves = flatten(params)
+    if train:
+        roots = per_layer_roots(arch.cfg)
+        params = _unflat(params, [
+            x.to(act._cast(k, x)).to(x.dtype)
+            if k.split("/")[0] in roots and act._cast(k, x) is not None
+            else x for k, x in zip(keys, leaves)])
+    fwd = lambda p: arch.forward(p, batch)
+    carries = []
+    scan = transformer.scan_layers_remat
+
+    def record(body, x, lps, cfg):
+        carries.append(tuple(x.shape))
+        return scan(body, x, lps, cfg)
+
+    if train:
+        with torch.no_grad():
+            full = fwd(params)
+            transformer.scan_layers_remat = record
+            encdec.scan_layers_remat = record
+            try:
+                with act.zero3(mesh, lspecs, (), train=True):
+                    got = fwd(gather(blocks))
+            finally:
+                transformer.scan_layers_remat = scan
+                encdec.scan_layers_remat = scan
+        return {"out": (_np(full), _np(got)), "carries": carries}
+    full, g_full, _ = _vjp(lambda t: fwd(t), params, ())
+    with act.zero3(mesh, lspecs, (), train=False):
+        got, g_got, _ = _vjp(lambda b: fwd(gather(b)), blocks, ())
+    return {"out": (_np(full), _np(got)),
+            "grads": {k: (_np(mesh.block(g, s)), _np(h)) for k, g, h, s in
+                      zip(keys, g_full, g_got, specs)}}
+
+
+def _serve_case(arch, params, tokens, feed, max_len, mesh):
+    """``prefill`` of ``tokens`` then a decode step per column of
+    ``feed``, sharded (caches from ``init_cache(mesh=)``, the batch on the
+    batch axes) against unsharded: every step's logits and the final
+    caches (assembled), and the query heads each attention call saw."""
+    from repro_torch.models import attention
+    from repro_torch.parallel import act_sharding as act
+    from repro_torch.parallel import zero
+    from repro_torch.parallel.mesh import batch_axes
+    blocks, _, lspecs, gather = _sharded_model(arch, params, mesh)
+    rows = (batch_axes(mesh),)
+    heads = []
+    flash, decode = attention.chunked_attention, attention.decode_attention
+
+    def seen(fn):
+        def call(q, *a, **k):
+            heads.append(q.shape[2])
+            return fn(q, *a, **k)
+        return call
+
+    def run(p, blocked):
+        cut = (lambda x: mesh.block(x, rows)) if blocked else (lambda x: x)
+        whole = (lambda x: zero.assemble(mesh, x, rows)) if blocked \
+            else (lambda x: x)
+        last, caches = arch.prefill(p, {"tokens": cut(tokens)}, max_len)
+        logits = [_np(whole(last))]
+        n = tokens.shape[1]
+        for t in range(feed.shape[1]):
+            out, caches = arch.decode_step(
+                p, {"tokens": cut(feed[:, t:t + 1])}, caches, n + t)
+            logits.append(_np(whole(out)))
+        return logits, caches
+
+    with torch.inference_mode():
+        want, c_want = run(params, False)
+        attention.chunked_attention = seen(flash)
+        attention.decode_attention = seen(decode)
+        try:
+            with act.zero3(mesh, lspecs, (), train=False):
+                got, c_got = run(gather(blocks), True)
+        finally:
+            attention.chunked_attention = flash
+            attention.decode_attention = decode
+        caches = {k: (_np(c_want[k].float()),
+                      _np(zero.assemble(mesh, c_got[k], c_got[k]._spec)
+                          .float()),
+                      tuple(c_got[k]._spec))
+                  for k in c_want}
+    return {"logits": (want, got), "caches": caches,
+            "heads": sorted(set(heads))}
+
+
+def job_tp_models(job):
+    """Whole models of ``job["cases"]`` on the mesh ``job["mesh"]``: the
+    forward in the serving engine's compute and in a train step's
+    (:func:`_forward_case`), and prefill + decode steps
+    (:func:`_serve_case`), each sharded against unsharded."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.models.registry import make_arch
+    mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
+    out = {}
+    for name, c in job["cases"].items():
+        arch = make_arch(c["cfg"])
+        params = _torch_tree(c["params"])
+        batch = {k: torch.as_tensor(v) for k, v in c["batch"].items()}
+        if c["kind"] == "serve":
+            out[name] = _serve_case(arch, params, batch["tokens"],
+                                    torch.as_tensor(c["feed"]),
+                                    c["max_len"], mesh)
+        else:
+            out[name] = _forward_case(arch, params, batch, mesh,
+                                      c["kind"] == "train")
+    return out
+
+
+def serve_run(eng, vocab: int) -> dict:
+    """The reference test's two requests (``arange(5)``, 6 new tokens;
+    ``arange(9)``, 4) through ``eng``: their tokens, the (B, V) logits
+    every sampling step saw, the collectives of the run and the query
+    heads each attention call computed."""
+    from repro_torch.core.distributed import count_collectives
+    from repro_torch.models import attention
+    steps, heads = [], []
+    sample, flash = eng._sample, attention.chunked_attention
+
+    def record(logits):
+        steps.append(_np(logits[:, -1].float()))
+        return sample(logits)
+
+    def seen(q, *a, **k):
+        heads.append(q.shape[2])
+        return flash(q, *a, **k)
+
+    eng._sample = record
+    r1 = eng.submit(np.arange(5) % vocab, max_new_tokens=6)
+    r2 = eng.submit(np.arange(9) % vocab, max_new_tokens=4)
+    attention.chunked_attention = seen
+    try:
+        with count_collectives() as c:
+            res = eng.run()
+    finally:
+        attention.chunked_attention = flash
+    return {"tokens": [res["results"][r1.rid], res["results"][r2.rid]],
+            "steps": steps, "counts": dict(c.counts),
+            "heads": sorted(set(heads))}
+
+
+def _refused(fn):
+    """The message of the ValueError ``fn`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _unmarked_mlp(mesh):
+    """The MLP inside ``zero3`` on ``mesh`` on weights that did not come
+    through its gather (their layout unknown)."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import act_sharding
+    w = {"wi_gate": torch.ones(4, 8), "wi_up": torch.ones(4, 8),
+         "wo": torch.ones(8, 4)}
+    with act_sharding.zero3(mesh, {}, (), train=False):
+        layers.mlp(w, torch.ones(1, 2, 4), torch.float32)
+
+
+def job_serve_mesh(job):
+    """``ServeEngine(arch, mesh)`` on the mesh ``job["mesh"]`` for each
+    case (its config, and the params it serves or None for its own
+    seeded draw), beside the unsharded engine when the case asks: the
+    runs of :func:`serve_run`, the shapes of the engine's param blocks,
+    and the errors of the layouts it must refuse and of its blocks
+    computed on outside ``zero3`` (``outside``) or of weights of unknown
+    layout inside it (``unmarked``)."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.models.registry import make_arch
+    from repro_torch.parallel import mesh as M
+    from repro_torch.serve.engine import ServeEngine
+    mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
+    out = {}
+    for name, c in job["cases"].items():
+        arch = make_arch(c["cfg"])
+        res = {}
+        for which, m in (("mesh", mesh), ("unsharded", None)):
+            if which == "unsharded" and not c.get("unsharded"):
+                continue
+            eng = ServeEngine(arch, m, batch_slots=2, max_len=64,
+                              device="cpu", **c.get("kw", {}))
+            if c.get("params") is not None:
+                eng.load_params(c["params"])
+            res[which] = serve_run(eng, c["cfg"].vocab_size)
+            if which == "mesh":
+                keys, leaves = flatten(eng.params)
+                res["blocks"] = {k: tuple(x.shape)
+                                 for k, x in zip(keys, leaves)}
+                res["outside"] = _refused(lambda: arch.forward(
+                    eng.params, {"tokens": torch.zeros(
+                        (1, 4), dtype=torch.int32)}))
+        out[name] = res
+    out["unmarked"] = _refused(lambda: _unmarked_mlp(mesh))
+    refusals = {}
+    for name, (cfg, kw, strategy) in job.get("refusals", {}).items():
+        M.set_strategy(strategy)
+        try:
+            ServeEngine(make_arch(cfg), mesh, device="cpu", **kw)
+        except ValueError as e:
+            refusals[name] = str(e)
+        finally:
+            M.set_strategy("2d")
+    out["refusals"] = refusals
+    return out
+
+
 JOBS = {"rollouts": job_rollouts, "steps": job_steps, "env": job_env,
         "restore": job_restore, "card": job_card,
         "collectives": job_collectives, "lm_train": job_lm_train,
-        "optim": job_optim}
+        "optim": job_optim, "tp_modules": job_tp_modules,
+        "tp_models": job_tp_models, "serve_mesh": job_serve_mesh}
 
 
 def same_on_every_rank(outs):
