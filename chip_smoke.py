@@ -171,7 +171,11 @@ Phases, each printing its own lines:
               the 1-rank run, per rank the peak memory beside the
               reckoned per-rank state, collective calls and wire bytes per
               step beside the storage-only model axis's and ms per step
-              (a record: the ranks share one card); then ``launch.dryrun
+              (a record: the ranks share one card); zamba2-1.2b at full
+              width, 2 SGD steps of 2 x 128 on (1, 2) (tensor-parallel
+              Mamba-2 layers), held to its 1-rank NCCL run: losses rtol
+              1e-5, the step-1 gradient's norm leaf by leaf and whole
+              within ``HYBRID_GRAD_RTOL``; then ``launch.dryrun
               --arch qwen1.5-0.5b --all --both-meshes``: each cell's
               reckoned GiB per device and analytic flops, and its
               one-device reckoning against the card's memory;
@@ -184,7 +188,10 @@ Phases, each printing its own lines:
               near ties, logits rtol 1e-4), granite-moe-1b-a400m at full
               width (16 experts a rank) and reduced yi-6b at ``max_len``
               8192 (its cache's sequence on ``model``) each held to the
-              port's unsharded engine on the card; per rank the peak
+              port's unsharded engine on the card, then falcon-mamba-7b
+              and zamba2-1.2b at full width (tensor-parallel Mamba
+              layers) held to the unsharded engine run alone first; per
+              rank the peak
               beside the reckoned params + cache, all-reduces and wire
               bytes per decode step, ms per prefill and per decode step.
               Alone: ``python -c "import chip_smoke as c; n, smi =
@@ -3086,10 +3093,184 @@ def _losses_and_ms(fn):
     return out, rows
 
 
+#: phases 19-20's SSM and hybrid configs at full width, float32 compute
+#: (hf:tiiuae/falcon-mamba-7b, hf:Zyphra/Zamba2-1.2B; nothing cut): served
+#: on (1, 2) with 2 slots, ``max_len`` 64, the reference test's prompt
+#: lengths and 8 new tokens; zamba2 trained 2 SGD steps of 2 x 128
+MESH_SSM = ("falcon-mamba-7b", "zamba2-1.2b")
+MESH_SSM_SERVE = dict(slots=2, max_len=64, prompts=(5, 9), new=8)
+MESH_HYBRID_TRAIN = dict(arch="zamba2-1.2b", batch=2, seq=128, steps=2)
+#: the bound on zamba2's step-1 gradient on (1, 2) against the 1-rank run,
+#: each leaf's norm and the global norm: on the CPU at d_model 512 and the
+#: full 38 layers, float32 (``tests/survey_mesh_ssm.py grads``), the
+#: reference's own (1, 2) and (1, 1) gradients part by up to 4.86e-05 in a
+#: leaf's norm (3.72e-05 globally), the port's by 7.35e-05; on the card
+#: every weight one ulp off moves the 1-rank gradient's leaf norms by up
+#: to 1.08e-03 (4.25e-04 globally; PERF.md section 6, run 5, printed by
+#: phase 19 beside the (1, 2) gaps); a gradient summed twice, or not
+#: summed, moves a leaf's norm by 0.29 or more
+HYBRID_GRAD_RTOL = 1e-3
+#: phase 19's (1, 2) qwen step while the loss took the logits assembled
+#: over ``model`` (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W)
+ASSEMBLED_LOGITS_MESH_LM = {"all-reduces": 262, "MiB": 555.8}
+
+
+def f32_config(arch_id):
+    """The full config of ``arch_id`` with float32 compute."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch_id), dtype="float32")
+
+
+def ssm_prompts(cfg):
+    return [np.arange(n) % cfg.vocab_size
+            for n in MESH_SSM_SERVE["prompts"]]
+
+
+def decode_collectives(cfg, slots):
+    """``(all-reduces, wire bytes)`` of one decode step of an SSM or hybrid
+    ``cfg`` computing tensor-parallel on a (1, 2) mesh, reckoned from the
+    code: the vocab-parallel embedding's psum, per Mamba layer the psum of
+    ``out_proj`` (Mamba-1: also of ``x_proj``'s r + 2n outputs), per
+    shared attention block the attention's and the MLP's psums, and the
+    logits' assembly -- each a float32 (slots, 1, width) all-reduce whose
+    wire bytes on two ranks are its bytes."""
+    per_layer = [cfg.d_model]
+    if cfg.ssm_variant == "mamba1":
+        per_layer.append(cfg.ssm_dt_rank + 2 * cfg.ssm_state)
+    shared = (-(-cfg.n_layers // cfg.hybrid_attn_every)
+              if cfg.family == "hybrid" else 0)
+    widths = ([cfg.d_model] + per_layer * cfg.n_layers
+              + [cfg.d_model] * 2 * shared + [cfg.vocab_size])
+    return len(widths), 4 * slots * sum(widths)
+
+
+def held_rel(got, want, parted):
+    """The largest |d| of each step's logits over that step's largest
+    |logit|, over the slots whose inputs still agree (up to the step at
+    which a counted near tie parted them)."""
+    first = {}
+    for i, t in parted:
+        first[i] = min(first.get(i, t), t)
+    err = 0.0
+    for t, (g, w) in enumerate(zip(got, want)):
+        rows = [i for i in range(w.shape[0]) if first.get(i, t) >= t]
+        if rows:
+            err = max(err, float(np.abs(g[rows] - w[rows]).max()
+                                 / np.abs(w[rows]).max()))
+    return err
+
+
+def hybrid_run(mesh, leaf_sq):
+    """``(losses, final state)`` of :data:`MESH_HYBRID_TRAIN` through
+    ``train.loop.train(mesh=)``: zamba2-1.2b at full width, seeded
+    weights, float32 compute, :func:`hybrid_optimizer`, ``SyntheticLM``
+    from seed 0; each step's :func:`grad_leaf_sq` appended to
+    ``leaf_sq``."""
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import train
+    t = MESH_HYBRID_TRAIN
+    cfg = f32_config(t["arch"])
+    state, hist = train(make_arch(cfg), hybrid_optimizer(leaf_sq), mesh,
+                        SyntheticLM(cfg.vocab_size, t["batch"], t["seq"],
+                                    seed=0),
+                        steps=t["steps"], log_every=1)
+    return np.array(hist, np.float64), state
+
+
+def hybrid_optimizer(leaf_sq=None):
+    """SGD with momentum 0.9 and clipping at 1.0 over phase 19's schedule
+    (``warmup_cosine(1e-3, 5, 300)``, ``tests/lm_train_fixture.LR``):
+    after an SGD step the loss moves with the gradient, so a later step's
+    loss holds it.  After AdamW's first step, sign-like and blind to each
+    leaf's scale, zamba2's (1, 2) and 1-rank losses parted by 3.11e-04
+    (PERF.md section 6).  With ``leaf_sq`` each update first appends
+    :func:`grad_leaf_sq` of the gradient it is given."""
+    import dataclasses
+    import lm_train_fixture as ltf
+    from repro_torch.train import optim
+    opt = optim.sgdm(optim.warmup_cosine(*ltf.LR))
+    if leaf_sq is None:
+        return opt
+
+    def update(grads, state, params, shards=None, inner=opt.update):
+        leaf_sq.append(grad_leaf_sq(grads, shards))
+        return inner(grads, state, params, shards=shards)
+    return dataclasses.replace(opt, update=update)
+
+
+def leaf_gaps(sq, want):
+    """The relative gap of each leaf's norm (``{key: squared norm}``
+    records, :func:`grad_leaf_sq`) to ``want``'s: per leaf, the worst and
+    where, and of the global norm."""
+    leaf = {k: abs(math.sqrt(sq[k] / want[k]) - 1) for k in want}
+    at = max(leaf, key=leaf.get)
+    return {"leaf": {k: float(f"{v:.2e}") for k, v in leaf.items()},
+            "worst": leaf[at], "at": at,
+            "global": abs(math.sqrt(sum(sq.values()) / sum(want.values()))
+                          - 1)}
+
+
+def hybrid_ulp_sq(mesh):
+    """:func:`grad_leaf_sq` of the step-1 gradient of
+    :data:`MESH_HYBRID_TRAIN` on ``mesh`` through ``train.step``'s sharded
+    step, from the seeded weights each moved one ulp up or down (signs
+    drawn from seed 1).  The activation shardings the step registers are
+    cleared after it, as ``train.loop.train`` clears them: left
+    registered, they make later unsharded models cast their layer weights
+    to bfloat16 (``act_sharding.gather_layer_params``)."""
+    from repro_torch.parallel import act_sharding
+    try:
+        return _hybrid_ulp_sq(mesh)
+    finally:
+        act_sharding.clear()
+
+
+def _hybrid_ulp_sq(mesh):
+    from repro_torch.models.registry import make_arch
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.step import init_state, jit_train_step
+    from repro_torch.tree import flatten, unflatten
+    t = MESH_HYBRID_TRAIN
+    cfg = f32_config(t["arch"])
+    arch, leaf_sq = make_arch(cfg), []
+    opt = hybrid_optimizer(leaf_sq)
+    batch = {k: torch.as_tensor(v, device=mesh.device) for k, v in
+             SyntheticLM(cfg.vocab_size, t["batch"], t["seq"],
+                         seed=0).batch_at(0).items()}
+    fn = jit_train_step(arch, opt, mesh, {
+        k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+        for k, v in batch.items()})[0]
+    state = init_state(arch, opt, mesh, 0)
+    gen = torch.Generator(mesh.device).manual_seed(1)
+    leaves = flatten(state["params"])[1]
+    state["params"] = unflatten(state["params"], [
+        torch.nextafter(x, torch.where(
+            torch.rand(x.shape, generator=gen, device=x.device) < 0.5,
+            -math.inf, math.inf).to(x.dtype)) for x in leaves])
+    fn(state, batch)
+    return leaf_sq[0]
+
+
+def grad_leaf_sq(grads, shards):
+    """``{key: squared norm}`` of this rank's block of each gradient leaf
+    over the count of the leaf's replicas (``zero.Layout.replicas``), so
+    that the ranks' records add up to the whole leaf's; no collective."""
+    from repro_torch.tree import flatten
+    keys, leaves = flatten(grads)
+    reps = ([1] * len(leaves) if shards is None
+            else [lay.replicas() for lay in shards.layouts])
+    norms = torch.stack([torch.linalg.vector_norm(x.float())
+                         for x in leaves]).double().square().tolist()
+    return {k: n / r for k, n, r in zip(keys, norms, reps)}
+
+
 def mesh_lm_rank(job):
     """One rank of phase 19's gloo runs: qwen1.5-0.5b at full width on the
     seeded weights in float32 on each mesh of ``job["shapes"]`` (all the
-    ranks), through ``train.loop.train(mesh=)``."""
+    ranks), through ``train.loop.train(mesh=)``; with ``job["hybrid"]``
+    then :data:`MESH_HYBRID_TRAIN` on (1, 2)."""
     import gc
     import torch.distributed as tdist
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -3117,7 +3298,8 @@ def mesh_lm_rank(job):
             wall = time.perf_counter() - t0
         shapes, specs = state_specs(lmf.seeded_arch(cfg, tree),
                                     ltf.optimizer(), mesh)
-        out.append({"shape": tuple(shape), "rank": tdist.get_rank(),
+        out.append({"arch": "qwen1.5-0.5b", "shape": tuple(shape),
+                    "rank": tdist.get_rank(),
                     "coord": dict(mesh.coord), "losses": losses.tolist(),
                     "peak": torch.cuda.max_memory_allocated(),
                     "held": torch.cuda.memory_allocated(),
@@ -3125,6 +3307,37 @@ def mesh_lm_rank(job):
                     "counts": dict(c.counts), "wire": c.total_wire_bytes,
                     "ms": [tokens / float(r[5]) * 1e3 for r in rows],
                     "wall": wall, "launches": launch_counts()})
+        del state
+    if job.get("hybrid"):
+        from repro_torch.models.registry import make_arch
+        t = MESH_HYBRID_TRAIN
+        mesh = D.make_mesh((1, 2), ("data", "model"), "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        leaf_sq = []
+        with D.count_collectives() as c:
+            t0 = time.perf_counter()
+            (losses, state), rows = _losses_and_ms(
+                lambda: hybrid_run(mesh, leaf_sq))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        shapes, specs = state_specs(make_arch(f32_config(t["arch"])),
+                                    hybrid_optimizer(), mesh)
+        out.append({"arch": t["arch"], "shape": (1, 2),
+                    "rank": tdist.get_rank(), "coord": dict(mesh.coord),
+                    "losses": losses.tolist(),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "held": torch.cuda.memory_allocated(),
+                    "reckoned": shd.per_device_bytes(shapes, specs, mesh),
+                    "counts": dict(c.counts), "wire": c.total_wire_bytes,
+                    "ms": [t["batch"] * t["seq"] / float(r[5]) * 1e3
+                           for r in rows],
+                    "grad_norm": [r[3] for r in rows],
+                    "leaf_sq": leaf_sq[0],
+                    "wall": wall, "launches": launch_counts(),
+                    "in_proj": tuple(state["params"]["layers"]["ssm"]
+                                     ["in_proj"].shape)})
         del state
     return out
 
@@ -3182,8 +3395,9 @@ def phase_mesh_lm(smi):
     """Phase 19: the LM meshes -- ZeRO-3 training through
     ``train.loop.train(mesh=)`` on a 1-rank NCCL mesh held to the
     reference's sharded fixture, 2 gloo ranks sharing the card ((1, 2)
-    computing tensor-parallel on ``model``), the LM dry-run over the named
-    meshes; no kernel launched."""
+    computing tensor-parallel on ``model``, the loss vocab-parallel),
+    zamba2-1.2b at full width on (1, 2) held to its 1-rank run, the LM
+    dry-run over the named meshes; no kernel launched."""
     import gc
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import lm_fixture
@@ -3242,27 +3456,101 @@ def phase_mesh_lm(smi):
     del runs, sstate, pstate, state, tree
     gc.collect()
     torch.cuda.empty_cache()
+    # -- zamba2-1.2b at full width on a 1-rank NCCL mesh ------------------
+    t = MESH_HYBRID_TRAIN
+    with dryrun.one_rank_group(torch.device(CARD)):
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        one_sq = []
+        (hybrid, state), rows = _losses_and_ms(lambda: hybrid_run(
+            make_host_mesh(1, 1, device=CARD), one_sq))
+        torch.cuda.synchronize()
+        log("mesh_lm", f"{t['arch']} full width (float32 compute) on a "
+            f"1-rank NCCL (1, 1) mesh, {t['steps']} SGD steps of "
+            f"{t['batch']} x {t['seq']} through train(mesh=) ({smi}): "
+            f"losses {hybrid.tolist()}; grad_norm per step "
+            f"{[row[3] for row in rows]}; ms per step "
+            f"{[round(t['batch'] * t['seq'] / float(r[5]) * 1e3, 1) for r in rows]}"
+            f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"(held before {base:.2f}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        hybrid_norms = [row[3] for row in rows]
+        one_sq = one_sq[0]
+        if not np.isfinite(hybrid).all():
+            raise AssertionError(f"mesh_lm {t['arch']}: {hybrid}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        # how far rounding-level changes move this gradient on its own
+        # (no tensor parallelism): every weight one ulp off
+        t0 = time.perf_counter()
+        ulp = leaf_gaps(hybrid_ulp_sq(make_host_mesh(1, 1, device=CARD)),
+                        one_sq)
+        log("mesh_lm", f"{t['arch']} on the 1-rank mesh, every weight one "
+            f"ulp off (seeded signs): step-1 gradient, each leaf's norm "
+            f"rel to the unmoved run's at most {ulp['worst']:.2e} "
+            f"({ulp['at']}), the global norm {ulp['global']:.2e}; per "
+            f"leaf {ulp['leaf']}; {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     # -- 2 gloo ranks sharing the card ------------------------------------
     t0 = time.perf_counter()
     outs = spawn_ranks(2, "gloo", [{"name": "lm_mesh",
-                                    "shapes": [(2, 1), (1, 2)]}])
+                                    "shapes": [(2, 1), (1, 2)],
+                                    "hybrid": True}])
+    hybrid_sq = {}
     for rank_out in outs:
         for r in rank_out[0]:
-            err = float(np.abs(np.array(r["losses"]) / f32 - 1).max())
+            for k, v in r.get("leaf_sq", {}).items():
+                hybrid_sq[k] = hybrid_sq.get(k, 0.0) + v
+    for rank_out in outs:
+        for r in rank_out[0]:
+            qwen = r["arch"] == "qwen1.5-0.5b"
+            steps = lmf.STEPS if qwen else t["steps"]
+            want = f32 if qwen else hybrid
+            err = float(np.abs(np.array(r["losses"]) / want - 1).max())
+            mib = r["wire"] / steps / 2**20
+            beside = (f"the storage-only model axis's "
+                      f"{STORAGE_ONLY_MESH_LM[tuple(r['shape'])]}"
+                      if qwen else f"in_proj block {r['in_proj']}; "
+                      f"grad_norm per step {r['grad_norm']}")
+            if qwen and tuple(r["shape"]) == (1, 2):
+                beside += (f"; with the logits assembled "
+                           f"{ASSEMBLED_LOGITS_MESH_LM['all-reduces']} "
+                           f"all-reduces, {ASSEMBLED_LOGITS_MESH_LM['MiB']} "
+                           f"MiB per step")
             log("mesh_lm", f"gloo {r['shape']} rank {r['rank']} "
-                f"{r['coord']} float32 ({smi}): losses {r['losses']} "
-                f"(rel to the 1-rank run {err:.2e}); peak "
+                f"{r['coord']} {r['arch']} float32 ({smi}): losses "
+                f"{r['losses']} (rel to the 1-rank run {err:.2e}); peak "
                 f"{r['peak'] / 2**30:.3f} GiB beside the reckoned per-rank "
                 f"state {r['reckoned'] / 2**30:.3f} GiB (held after "
                 f"{r['held'] / 2**30:.3f} GiB); collectives per step "
-                f"{ {k: v / lmf.STEPS for k, v in r['counts'].items()} }, "
-                f"wire {r['wire'] / lmf.STEPS / 2**20:.1f} MiB per step; "
+                f"{ {k: v / steps for k, v in r['counts'].items()} }, "
+                f"wire {mib:.3f} MiB per step; "
                 f"ms per step {[round(x, 1) for x in r['ms']]} (ranks share "
                 f"the card: a record); launches {r['launches']}; beside "
-                f"the storage-only model axis's "
-                f"{STORAGE_ONLY_MESH_LM[tuple(r['shape'])]}")
+                f"{beside}")
             if err > 1e-5 or any(r["launches"].values()):
                 raise AssertionError(f"mesh_lm gloo {r['shape']}: {r}")
+            if qwen and tuple(r["shape"]) == (1, 2) and \
+                    mib >= ASSEMBLED_LOGITS_MESH_LM["MiB"]:
+                raise AssertionError(f"mesh_lm (1, 2): {mib} MiB a step "
+                                     f"still assembles the logits")
+    # zamba2's step-1 gradient on (1, 2), leaf by leaf: each whole leaf's
+    # norm (the ranks' records added) against the 1-rank run's, and the
+    # global norm
+    tp_gap = leaf_gaps(hybrid_sq, one_sq)
+    log("mesh_lm", f"gloo (1, 2) {t['arch']} ({smi}): step-1 gradient, "
+        f"each leaf's norm rel to the 1-rank run's at most "
+        f"{tp_gap['worst']:.2e} ({tp_gap['at']}), the global norm "
+        f"{math.sqrt(sum(hybrid_sq.values())):.6f} beside "
+        f"{math.sqrt(sum(one_sq.values())):.6f} (rel "
+        f"{tp_gap['global']:.2e}); tol {HYBRID_GRAD_RTOL:.0e}; per leaf "
+        f"{tp_gap['leaf']}; beside the one-ulp move's "
+        f"{ulp['worst']:.2e} / {ulp['global']:.2e}")
+    if max(tp_gap["worst"], tp_gap["global"]) > HYBRID_GRAD_RTOL:
+        raise AssertionError(f"mesh_lm gloo (1, 2) {t['arch']}: step-1 "
+                             f"gradient {tp_gap}")
     log("mesh_lm", f"gloo ranks in {time.perf_counter() - t0:.1f} s")
     mesh_lm_dryrun(smi)
     no_launches("mesh_lm", "the LM mesh path has no hand-written kernel")
@@ -3406,6 +3694,31 @@ def mesh_serve_rank(job):
                 res["cache_spec"] = tuple(eng.cache_specs["k"])
             del eng
         out[name] = res
+    # the SSM and hybrid configs at full width: the unsharded engine ran
+    # in the parent before the ranks started (both would not fit)
+    for arch_id in MESH_SSM:
+        cfg = f32_config(arch_id)
+        fresh()
+        t0 = time.perf_counter()
+        eng = ServeEngine(make_arch(cfg), mesh,
+                          batch_slots=MESH_SSM_SERVE["slots"],
+                          max_len=MESH_SSM_SERVE["max_len"], seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        tokens, steps, rec = serve_mesh_run(eng, ssm_prompts(cfg),
+                                            MESH_SSM_SERVE["new"])
+        layer = eng.params["layers"]["ssm"]
+        out[arch_id] = {
+            "tokens": tokens, "steps": steps, "rec": rec, "init_s": init_s,
+            "init_peak": init_peak,
+            "peak": torch.cuda.max_memory_allocated(),
+            "held": torch.cuda.memory_allocated(),
+            "reckoned": reckoned_serve_bytes(eng),
+            "blocks": {k: tuple(layer[k].shape)
+                       for k in ("in_proj", "out_proj", "dt_proj")},
+            "cache_spec": tuple(eng.cache_specs["h"])}
+        del eng, layer
     out["launches"] = launch_counts()
     return out
 
@@ -3413,12 +3726,91 @@ def mesh_serve_rank(job):
 MESH_JOBS["serve_mesh"] = mesh_serve_rank
 
 
+def serve_ssm_unsharded(smi):
+    """The port's unsharded engine on each config of :data:`MESH_SSM` at
+    full width, one at a time, each freed before the next: what the
+    (1, 2) ranks are held to."""
+    import gc
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import make_arch
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for arch_id in MESH_SSM:
+        cfg = f32_config(arch_id)
+        base = fresh_peak()
+        t0 = time.perf_counter()
+        eng = ServeEngine(make_arch(cfg), batch_slots=MESH_SSM_SERVE["slots"],
+                          max_len=MESH_SSM_SERVE["max_len"], seed=0,
+                          device=CARD)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens, steps, rec = serve_mesh_run(eng, ssm_prompts(cfg),
+                                            MESH_SSM_SERVE["new"])
+        out[arch_id] = {"tokens": tokens, "steps": steps, "rec": rec,
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "params": transformer.param_bytes(eng.params)}
+        log("serve_mesh", f"{arch_id} full width, float32 compute, the "
+            f"unsharded engine on the card ({smi}): "
+            f"{transformer.param_count(eng.params) / 1e9:.3f} B params, "
+            f"init {init_s:.1f} s; tokens {tokens}; "
+            f"{serve_mesh_line(rec)}; peak "
+            f"{out[arch_id]['peak'] / 2**30:.3f} GiB beside the params' "
+            f"{out[arch_id]['params'] / 2**30:.3f} GiB (held before "
+            f"{base:.2f})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_ssm_rank(r, arch_id, plain, smi):
+    """Hold rank ``r``'s (1, 2) run of ``arch_id`` to the unsharded
+    engine's: logits within 1e-4 of their largest while a slot's inputs
+    agree, tokens equal off counted near ties; its all-reduces and wire
+    bytes per decode step equal to :func:`decode_collectives`."""
+    import lm_fixture
+    m = r[arch_id]
+    cfg = f32_config(arch_id)
+    p = np.arange(64)
+    log("serve_mesh", f"gloo (1, 2) rank {r['rank']}: {arch_id} tokens "
+        f"{[list(map(int, t)) for t in m['tokens']]}, the unsharded "
+        f"engine's {[list(map(int, t)) for t in plain['tokens']]}; the "
+        f"first step's largest |logit| {np.abs(m['steps'][0]).max():.4g} "
+        f"/ {np.abs(plain['steps'][0]).max():.4g}, its largest |d| "
+        f"{np.abs(m['steps'][0] - plain['steps'][0]).max():.4g}")
+    res = lm_fixture.hold(lm_fixture.summarize(m["steps"], p),
+                          lm_fixture.summarize(plain["steps"], p),
+                          m["tokens"], plain["tokens"], "float32")
+    rel = held_rel(m["steps"], plain["steps"], res["parted"])
+    want_n, want_b = decode_collectives(cfg, MESH_SSM_SERVE["slots"])
+    got_n, got_b = m["rec"]["decode"][0][1:]
+    log("serve_mesh", f"gloo (1, 2) rank {r['rank']}: {arch_id} full width "
+        f"f32, the Mamba channels on the rank ({m['blocks']}, h cache "
+        f"{m['cache_spec']}), held to the unsharded engine ({smi}): "
+        f"{res['held_steps']} slot steps, logits max |d| rel to their "
+        f"largest {rel:.2e} (tol 1e-4), parted {res['parted']} (near ties "
+        f"{res['near_ties']}); per decode step {got_n} all-reduces, "
+        f"{got_b / 2**20:.4f} MiB, reckoned {want_n}, "
+        f"{want_b / 2**20:.4f} MiB; {serve_mesh_line(m['rec'])}; init "
+        f"{m['init_s']:.1f} s (peak {m['init_peak'] / 2**30:.3f} GiB); "
+        f"peak {m['peak'] / 2**30:.3f} GiB beside the reckoned params + "
+        f"cache {m['reckoned'] / 2**30:.3f} GiB (held "
+        f"{m['held'] / 2**30:.3f}; ranks share the card: a record); the "
+        f"unsharded engine {serve_mesh_line(plain['rec'])}")
+    if rel > 1e-4 or got_n != want_n or got_b != want_b:
+        raise AssertionError(f"serve_mesh {arch_id} rank {r['rank']}: rel "
+                             f"{rel}, {got_n} all-reduces ({want_n}), "
+                             f"{got_b} bytes ({want_b})")
+
+
 def phase_serve_mesh(smi):
     """Phase 20: serving on a mesh -- ``ServeEngine(arch, mesh)`` on a
     1-rank NCCL (1, 1) mesh held to the reference's fixture, then two gloo
     ranks sharing the card on (1, 2): qwen1.5-0.5b held to the 1-rank
     run, granite-moe-1b-a400m at full width and reduced yi-6b's
-    sequence-sharded 8192 cache held to the port's unsharded engine; no
+    sequence-sharded 8192 cache held to the port's unsharded engine, and
+    falcon-mamba-7b and zamba2-1.2b at full width with tensor-parallel
+    Mamba layers held to the unsharded engine run before the ranks; no
     kernel launched."""
     import gc
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -3465,6 +3857,7 @@ def phase_serve_mesh(smi):
     del tree
     gc.collect()
     torch.cuda.empty_cache()
+    ssm_plain = serve_ssm_unsharded(smi)
     # -- 2 gloo ranks sharing the card on (1, 2) --------------------------
     t0 = time.perf_counter()
     outs = [o[0] for o in spawn_ranks(2, "gloo", [{"name": "serve_mesh"}])]
@@ -3503,6 +3896,8 @@ def phase_serve_mesh(smi):
                 f"{serve_mesh_line(u['rec'])}; peak {m['peak'] / 2**30:.3f}"
                 f" GiB beside the reckoned {r[name]['reckoned'] / 2**30:.3f}"
                 f" GiB (unsharded {u['peak'] / 2**30:.3f})")
+        for arch_id in MESH_SSM:
+            hold_ssm_rank(r, arch_id, ssm_plain[arch_id], smi)
         if any(r["launches"].values()):
             raise AssertionError(f"serve_mesh: kernels launched: "
                                  f"{r['launches']}")

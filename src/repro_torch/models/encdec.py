@@ -169,8 +169,8 @@ def forward_features(params, batch, cfg: ModelConfig):
                           cfg.norm_eps)
 
 
-def head(params, x, cfg: ModelConfig):
-    return layers.lm_head(params["lm_head"], x)
+def head(params, x, cfg: ModelConfig, vocab_block: bool = False):
+    return layers.lm_head(params["lm_head"], x, vocab_block)
 
 
 def forward(params, batch, cfg: ModelConfig):

@@ -182,20 +182,26 @@ def embed(params, tokens, compute_dtype):
     return tp.assemble(rows, ax, -1) if dim == 1 else rows
 
 
-def _vocab_logits(x, w_t, ax):
+def _vocab_logits(x, w_t, ax, vocab_block=False):
     """float32 ``x @ w_t`` with the vocab on ``model`` when ``ax`` is that
-    axis: the rank's columns from a replicated ``x``, assembled."""
-    return tp.assemble(tp.copy(x.float(), ax) @ w_t.float(), ax, -1)
+    axis: the rank's columns from a replicated ``x``, assembled -- or,
+    with ``vocab_block``, returned as a ``tp.VocabBlock`` (the loss
+    combines the ranks' columns without assembling them)."""
+    local = tp.copy(x.float(), ax) @ w_t.float()
+    if vocab_block and tp.active(ax):
+        return tp.VocabBlock(local, tp.offset(local.shape[-1], ax), ax)
+    return tp.assemble(local, ax, -1)
 
 
-def unembed(params, x):
-    """Logits in float32 for a stable softmax/loss."""
+def unembed(params, x, vocab_block=False):
+    """Logits in float32 for a stable softmax/loss (``vocab_block``: see
+    :func:`_vocab_logits`)."""
     table = params["embedding"]
     dim = act_sharding.tp_dim(table)
     if dim == 1:                  # D on 'model': assemble the table
         table = tp.assemble(table, act_sharding.model_axis(), 1)
     return _vocab_logits(x, table.T, act_sharding.model_axis()
-                         if dim == 0 else None)
+                         if dim == 0 else None, vocab_block)
 
 
 def lm_head_init(gen, d_model, vocab, dtype=torch.float32, device=None):
@@ -203,8 +209,10 @@ def lm_head_init(gen, d_model, vocab, dtype=torch.float32, device=None):
                                  device=device)}
 
 
-def lm_head(params, x):
+def lm_head(params, x, vocab_block=False):
     """Logits in float32; with the vocab columns on ``model`` the rank's
-    columns, assembled before the loss and the sampler."""
+    columns, assembled for the sampler (with ``vocab_block``, for the
+    loss, left as the rank's :class:`~repro_torch.parallel.tp.VocabBlock`)."""
     kernel = params["kernel"]
-    return _vocab_logits(x, kernel, act_sharding.tp_axis(kernel, 1))
+    return _vocab_logits(x, kernel, act_sharding.tp_axis(kernel, 1),
+                         vocab_block)

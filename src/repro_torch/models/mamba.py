@@ -10,6 +10,18 @@ matmul dual form (:func:`_mamba2_ssd_chunks`), mirrored op for op.
 
 Decode is a single O(1) state update: one new token against the carried
 state and the last ``ssm_conv - 1`` conv inputs.
+
+Under tensor parallelism on ``model`` (``parallel.tp``) each rank computes
+its block of the ``d_inner`` channels (Mamba-2: of the heads): its
+``in_proj`` block holds its x and z columns (``parallel.zero.block``), so
+the projection is column-parallel, and the causal conv, the scan and the
+``h`` / ``conv`` states run on the rank's channels.  ``out_proj`` is
+row-parallel, one psum.  Mamba-1's ``x_proj`` is row-parallel too: its
+r + 2n outputs are a psum, and since they feed every rank's channels their
+gradient is summed over the ranks once (a copy after the psum) before it
+reaches ``x_proj``.  Mamba-2's ``B_proj`` / ``C_proj`` are whole on every
+rank, and B and C feed the rank's heads: their gradient is summed the same
+way before it reaches the weights or the residual.
 """
 from __future__ import annotations
 
@@ -19,6 +31,36 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import act_sharding, tp
+
+#: the dimension of each channel (Mamba-2: head) leaf that is the rank's
+#: block under tensor parallelism
+_CHANNEL_DIMS = {"in_proj": 1, "conv_w": 0, "conv_b": 0, "x_proj": 0,
+                 "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0,
+                 "out_proj": 0}
+
+
+def channel_axis(params):
+    """The ``model`` axis when the layer's weights are the rank's blocks
+    of its channels (every leaf of :data:`_CHANNEL_DIMS` on its dimension,
+    ``B_proj`` / ``C_proj`` whole), None when every leaf is whole; any
+    other layout raises."""
+    dims = {k: act_sharding.tp_dim(params[k]) for k in _CHANNEL_DIMS
+            if k in params}
+    whole = {k: act_sharding.tp_dim(params[k]) for k in ("B_proj", "C_proj")
+             if k in params}
+    if all(d is None for d in dims.values()) and \
+            all(d is None for d in whole.values()):
+        return None
+    bad = {k: d for k, d in dims.items() if d != _CHANNEL_DIMS[k]}
+    bad.update((k, d) for k, d in whole.items() if d is not None)
+    if bad:
+        raise ValueError(f"a Mamba layer computes tensor-parallel with every "
+                         f"channel leaf blocked on 'model' and B_proj / "
+                         f"C_proj whole; these leaves' model dimensions "
+                         f"are {bad} (channels or heads that do not divide "
+                         f"over the model axis)")
+    return act_sharding.model_axis()
 
 
 def _chunk_split(x, n_chunks, Q):
@@ -113,14 +155,18 @@ def mamba1_init(gen, cfg, dtype=torch.float32, lead=(), device=None):
 
 def mamba1_forward(params, x, cfg, compute_dtype, h0=None, conv0=None,
                    return_state: bool = False):
-    """x: (b, s, d).  h0: (b, din, n) initial state; conv0: (b, k-1, din)."""
+    """x: (b, s, d).  h0: (b, din, n) initial state; conv0: (b, k-1, din)
+    (din: the rank's channels under tensor parallelism)."""
     b, s, d = x.shape
-    din, n, r = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
-    xz = x @ params["in_proj"].to(compute_dtype)
+    n, r = cfg.ssm_state, cfg.ssm_dt_rank
+    ax = channel_axis(params)
+    din = params["in_proj"].shape[-1] // 2
+    xz = tp.copy(x, ax) @ params["in_proj"].to(compute_dtype)
     x_in, z = torch.chunk(xz, 2, dim=-1)
     x_c = F.silu(_conv_in(params, x_in, conv0, compute_dtype))
 
-    proj = x_c @ params["x_proj"].to(compute_dtype)
+    proj = tp.copy(tp.psum((x_c @ params["x_proj"].to(compute_dtype))
+                           .float(), ax), ax)
     dt_raw = proj[..., :r].float()
     Bm = proj[..., r:r + n].float()                     # (b, s, n)
     Cm = proj[..., r + n:].float()
@@ -148,7 +194,7 @@ def mamba1_forward(params, x, cfg, compute_dtype, h0=None, conv0=None,
 
     y, h_last = _ssm_scan_chunks(make_chunk, outputs_of, s, Q, h0, xs)
     y = y.to(compute_dtype) * F.silu(z)
-    out = y @ params["out_proj"].to(compute_dtype)
+    out = tp.psum(y @ params["out_proj"].to(compute_dtype), ax)
     if return_state:
         return out, h_last, _conv_state(x_in, conv0, cfg.ssm_conv,
                                         compute_dtype)
@@ -189,17 +235,22 @@ def mamba2_init(gen, cfg, dtype=torch.float32, lead=(), device=None):
 
 def mamba2_forward(params, x, cfg, compute_dtype, h0=None, conv0=None,
                    return_state: bool = False):
-    """x: (b, s, d).  State h: (b, H, P, n)."""
+    """x: (b, s, d).  State h: (b, H, P, n) (H: the rank's heads under
+    tensor parallelism)."""
     b, s, d = x.shape
-    din, n = cfg.d_inner, cfg.ssm_state
-    H, Pd = cfg.ssm_heads, cfg.ssm_head_dim
-    xz = x @ params["in_proj"].to(compute_dtype)
+    n, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    ax = channel_axis(params)
+    H = params["dt_proj"].shape[-1]
+    din = H * Pd
+    xl = tp.copy(x, ax)                   # feeds the rank's channels
+    xz = xl @ params["in_proj"].to(compute_dtype)
     x_in, z = torch.chunk(xz, 2, dim=-1)
     x_c = F.silu(_conv_in(params, x_in, conv0, compute_dtype))
 
-    Bm = (x @ params["B_proj"].to(compute_dtype)).float()
-    Cm = (x @ params["C_proj"].to(compute_dtype)).float()
-    dt = F.softplus(x.float() @ params["dt_proj"] + params["dt_bias"])
+    Bm, Cm = tp.copy(torch.stack([
+        (x @ params["B_proj"].to(compute_dtype)).float(),
+        (x @ params["C_proj"].to(compute_dtype)).float()]), ax).unbind(0)
+    dt = F.softplus(xl.float() @ params["dt_proj"] + params["dt_bias"])
     A = -torch.exp(params["A_log"])                     # (H,)
 
     xh = x_c.float().reshape(b, s, H, Pd)
@@ -230,7 +281,7 @@ def mamba2_forward(params, x, cfg, compute_dtype, h0=None, conv0=None,
 
         y, h_last = _ssm_scan_chunks(make_chunk, outputs_of, s, Q, h0, xs)
     y = y.reshape(b, s, din).to(compute_dtype) * F.silu(z)
-    out = y @ params["out_proj"].to(compute_dtype)
+    out = tp.psum(y @ params["out_proj"].to(compute_dtype), ax)
     if return_state:
         return out, h_last, _conv_state(x_in, conv0, cfg.ssm_conv,
                                         compute_dtype)

@@ -62,7 +62,8 @@ def make_arch(cfg: ModelConfig) -> Arch:
         init=lambda gen, device=None: m.init_params(gen, cfg, device=device),
         forward=lambda p, b: m.forward(whole(p), b, cfg),
         forward_features=lambda p, b: m.forward_features(whole(p), b, cfg),
-        head=lambda p, x: m.head(whole(p), x, cfg),
+        head=lambda p, x, vocab_block=False: m.head(whole(p), x, cfg,
+                                                    vocab_block),
         prefill=lambda p, b, max_len: m.prefill(whole(p), b, cfg, max_len),
         decode_step=lambda p, b, c, pos: m.decode_step(whole(p), b, c, pos,
                                                        cfg),

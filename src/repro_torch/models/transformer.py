@@ -130,9 +130,13 @@ def param_bytes(params) -> int:
 
 def unstack(tree, n: int) -> list:
     """The ``n`` slices along the leading (layer) axis of every leaf, as
-    ``n`` trees of views (``torch.unbind``: one backward node per leaf)."""
+    ``n`` trees of views (``torch.unbind``: one backward node per leaf),
+    each keeping its leaf's ``model`` dimension
+    (``act_sharding.mark_slices``)."""
     _, leaves = flatten(tree)
     per = [torch.unbind(x, 0) for x in leaves]
+    for x, parts in zip(leaves, per):
+        act_sharding.mark_slices(x, parts)
     return [unflatten(tree, [p[i] for p in per]) for i in range(n)]
 
 
@@ -327,10 +331,13 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
     read and rewritten in place.  In training under sequence parallelism
     (``act_sharding.sequence_parallel``) the residual between layers is
     the rank's sequence block: each layer assembles it on entry and cuts
-    its output (``constrain``)."""
+    its output (``constrain``).  The SSM and hybrid stacks carry an SSM
+    residual (``residual_ssm``), the whole sequence on every rank: the
+    scan runs over it in order."""
     L = cfg.n_layers
     lps = unstack(params["layers"], L)
-    sp = caches is None and act_sharding.sequence_parallel(x.shape)
+    role = "residual_ssm" if cfg.family in ("ssm", "hybrid") else "residual"
+    sp = caches is None and act_sharding.sequence_parallel(x.shape, role)
     sharded = act_sharding.sharded()
     if cfg.family in ("dense", "moe", "vlm"):
         use_moe = cfg.family == "moe"
@@ -360,13 +367,13 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
             def body(h, lp):
                 h = unconstrain(h, sp)
                 lp = gather_layer_params(lp)
-                return constrain(_ssm_block(lp, h, cfg, cdt)[0])
+                return constrain(_ssm_block(lp, h, cfg, cdt)[0], role)
 
-            return unconstrain(scan_layers_remat(body, constrain(x), lps,
-                                                 cfg), sp), None
+            return unconstrain(scan_layers_remat(body, constrain(x, role),
+                                                 lps, cfg), sp), None
         for li in range(L):
-            x = _ssm_layer(gather_layer_params(lps[li]), constrain(x), cfg,
-                           cdt, caches, li)
+            x = _ssm_layer(gather_layer_params(lps[li]), constrain(x, role),
+                           cfg, cdt, caches, li)
         return x, caches
 
     if cfg.family == "hybrid":
@@ -375,25 +382,26 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
         x0 = x
         li = 0
         if caches is None:
-            x = constrain(x)
+            x = constrain(x, role)
         for g in range(n_groups):
             size = min(every, L - g * every)
             if caches is None:
                 x = scan_layers_remat(
                     lambda h, lp: constrain(_ssm_block(
-                        lp, unconstrain(h, sp), cfg, cdt)[0]),
+                        lp, unconstrain(h, sp), cfg, cdt)[0], role),
                     x, lps[li:li + size], cfg)
                 # shared attention block after each group (rematted: its
                 # flash residuals would otherwise persist per invocation)
                 shared = lambda h, h0, p: constrain(_shared_block(
-                    p, unconstrain(h, sp), h0, cfg, cdt, positions))
+                    p, unconstrain(h, sp), h0, cfg, cdt, positions), role)
                 x = (checkpoint(shared, x, x0, params["shared_attn"])
                      if remat_on(cfg) else shared(x, x0,
                                                   params["shared_attn"]))
                 li += size
                 continue
             for _ in range(size):
-                x = _ssm_layer(lps[li], constrain(x), cfg, cdt, caches, li)
+                x = _ssm_layer(lps[li], constrain(x, role), cfg, cdt, caches,
+                               li)
                 li += 1
             # shared attention block after each group
             x = _shared_block(params["shared_attn"], x, x0, cfg, cdt,
@@ -406,10 +414,10 @@ def _run_layers(params, x, cfg, cdt, positions, caches=None, pos=None):
     raise ValueError(cfg.family)
 
 
-def _logits(params, x, cfg):
+def _logits(params, x, cfg, vocab_block=False):
     if cfg.tie_embeddings:
-        return layers.unembed(params["embed"], x)
-    return layers.lm_head(params["lm_head"], x)
+        return layers.unembed(params["embed"], x, vocab_block)
+    return layers.lm_head(params["lm_head"], x, vocab_block)
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +431,10 @@ def forward_features(params, batch, cfg: ModelConfig):
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def head(params, x, cfg: ModelConfig):
-    return _logits(params, x, cfg)
+def head(params, x, cfg: ModelConfig, vocab_block: bool = False):
+    """Logits of the final features ``x`` (``vocab_block``: the rank's
+    vocab columns when they are on ``model``, ``layers.lm_head``)."""
+    return _logits(params, x, cfg, vocab_block)
 
 
 def forward(params, batch, cfg: ModelConfig):

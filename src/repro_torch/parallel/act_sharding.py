@@ -18,10 +18,16 @@ sharded train step, or ``serve.engine.ServeEngine`` on a mesh) when the
   :func:`ec_spec`): ``models.moe`` fills the rank's experts' slots of the
   dispatch buffer; tokens stay replicated along ``model``
   (:func:`tokens_spec`), so the combine is one psum and no all-to-all;
+* Mamba channels and heads on ``model``: ``models.mamba`` computes on
+  the rank's block of ``in_proj``'s x and z columns (``parallel.zero
+  .block`` lays them out), of the conv, the scan and the ``h`` / ``conv``
+  states; ``x_proj`` and ``out_proj`` are row-parallel;
 * residuals ``P(batch, "model", None)`` (:func:`residual_spec`): inside a
   sharded train step :func:`constrain` cuts the residual carried between
   layers to the rank's sequence block, and :func:`unconstrain` assembles it
-  at the next layer's entry.
+  at the next layer's entry; an SSM residual (``residual_ssm``: the SSM
+  and hybrid stacks) stays whole, since the scan runs over the whole
+  sequence.
 
 So ``constrain_heads``, ``constrain_expert``, ``constrain_ec`` and
 ``constrain_tokens`` return their tensor unchanged, and the layout each
@@ -37,8 +43,9 @@ its ``model`` dimension kept as the rank's block (``parallel.zero.gather``,
 whose backward sums the gradient over the batch axes and keeps the
 block).  The model reads which dimension of a weight is the rank's block
 with :func:`tp_dim` / :func:`tp_axis`, which raise for a weight of unknown
-layout.  Mamba layers (a layer with ``ssm`` leaves) are
-still gathered whole.  In a train step float32 leaves outside
+layout.  A leaf whose spec has no ``model`` entry (one that does not
+divide, or a replicated one) is gathered whole.  In a train step float32
+leaves outside
 :data:`_F32_KEEP` are cast to bfloat16 on the way, under any mesh, a
 (1, 1) one included, as in the reference; the serving engine casts none.
 """
@@ -277,6 +284,17 @@ def tp_dim(w) -> Optional[int]:
     return mark
 
 
+def mark_slices(w, slices) -> None:
+    """Give the layer ``slices`` of a stacked leaf ``w`` (its leading
+    dimension unbound) the ``model`` dimension :func:`gather_leaf` marked
+    on ``w``, if it marked one."""
+    mark = getattr(w, "_model_dim", _UNMARKED)
+    if mark is _UNMARKED:
+        return
+    for x in slices:
+        x._model_dim = None if mark is None else mark - 1
+
+
 def tp_axis(w, dim: int):
     """The ``model`` axis when the weight ``w`` is the rank's block of it
     on dimension ``dim`` (:func:`tp_dim`), else None."""
@@ -297,11 +315,6 @@ def check_whole(params, whole: dict) -> None:
                              f"train step, ServeEngine(arch, mesh))")
 
 
-def whole(key: str) -> bool:
-    """A leaf gathered whole this slice: a Mamba layer's (``ssm``)."""
-    return "ssm" in key.split("/")
-
-
 def keep_spec(spec, keep_model: bool):
     """The spec a leaf is gathered to: its ``model`` entry kept (the
     reference's ``model_only``) or nothing kept."""
@@ -311,12 +324,10 @@ def keep_spec(spec, keep_model: bool):
 def gather_leaf(key, w, mesh, spec, grad_axes, cast=None, model=None):
     """One leaf from the rank's block under ``spec`` to its compute
     layout: whole, or with its ``model`` dimension kept when ``model`` is
-    the tensor-parallel axis and the leaf is not :func:`whole`.  Under
-    tensor parallelism the leaf is marked with that dimension, or None,
-    for :func:`tp_dim`."""
+    the tensor-parallel axis.  Under tensor parallelism the leaf is marked
+    with that dimension, or None, for :func:`tp_dim`."""
     spec = zero.padded(spec, w.dim())
-    keep = model is not None and not whole(key)
-    target = keep_spec(spec, keep)
+    target = keep_spec(spec, model is not None)
     gather_spec = P(*[None if t == "model" else a
                       for a, t in zip(spec, target)])
     out = zero.gather(w, mesh, gather_spec, grad_axes, cast)

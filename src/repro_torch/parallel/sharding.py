@@ -111,7 +111,7 @@ def _param_rule(path, shape: tuple, mesh) -> PartitionSpec:
     if leaf == "in_proj":
         if len(core) == 2 and core[0] > core[1]:  # shared-attn (2D, D)
             return out([None, None])
-        return out(_first_fit(core, [1], mesh))   # mamba (D, 2*din)
+        return out(_first_fit(core, [1], mesh))   # mamba (D, 2*din), xz_ranks
     if leaf == "out_proj":                        # mamba (din, D)
         return out(_first_fit(core, [0], mesh))
     if leaf == "x_proj":                          # (din, r+2n)
@@ -130,6 +130,24 @@ def _param_rule(path, shape: tuple, mesh) -> PartitionSpec:
         return out([None, None])
     # scales, norms, anything unmatched: replicate
     return out([None] * len(core))
+
+
+def xz_ranks(path, spec, mesh) -> int:
+    """How many ``model`` ranks interleave the x and z column blocks of
+    the leaf at ``path`` under ``spec``: a Mamba ``in_proj`` (D, 2 din)
+    -- or an optimizer moment of its shape (AdamW's, Adafactor's ``v``
+    and column statistic ``vc``) -- whose columns this rule puts on the
+    tensor-parallel ``model`` axis.  Rank r's block of such a leaf is x
+    block r followed by z block r, the columns it computes on
+    (``models.mamba``), and the spec stays the one above.  Else 1: the
+    contiguous block (under ``"dp"`` the columns' ``("data", "model")``
+    is storage only)."""
+    names = _names(path)
+    if names[-1] in ("v", "vc") and len(names) >= 2:
+        names = names[:-1]
+    if names[-1] != "in_proj" or "ssm" not in names or not len(spec):
+        return 1
+    return axis_size(mesh, "model") if spec[-1] == "model" else 1
 
 
 def infer_param_specs(params_shape, mesh):

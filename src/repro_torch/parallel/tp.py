@@ -32,6 +32,8 @@ holding the rank's block (exact).  ``ax`` is the ``model`` axis
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import distributed as D
@@ -113,8 +115,25 @@ def split(x, ax, dim: int):
 
 
 def pmax(x, ax):
-    """The maximum over ``model`` (not differentiated: serving only)."""
+    """The maximum over ``model`` (not differentiated: of values without
+    a gradient)."""
     return D.pmax(x.contiguous(), ax) if active(ax) else x
+
+
+def pmin(x, ax):
+    """The minimum over ``model`` (not differentiated)."""
+    return D.pmin(x.contiguous(), ax) if active(ax) else x
+
+
+class VocabBlock(NamedTuple):
+    """The rank's vocab columns of float32 logits (..., V / model), the
+    global index of its first column, and the ``model`` axis: what the
+    head returns inside a sharded train step when the vocab is on
+    ``model`` (``train.loss`` combines the ranks' columns exactly)."""
+
+    logits: torch.Tensor
+    offset: int
+    ax: object
 
 
 def offset(n_local: int, ax) -> int:

@@ -19,6 +19,16 @@ exact), a reduce-scatter is a psum followed by the rank's block.
 * :class:`Layout` / :class:`Shards` -- each leaf's spec, full shape and
   mesh, for the optimizer's reductions over a whole leaf (the global
   norm, Adafactor's row and column means and update RMS).
+* :func:`block` / :func:`assemble` with ``key`` -- a global leaf to this
+  rank's block and back, the one place that does so for the params and
+  the train state (the serving engine's draw and ``load_params``,
+  ``train.step.block_tree`` / ``unblock_tree``, the checkpoint's restore
+  by shardings).  A leaf's block is its contiguous block under its spec,
+  except where the rules interleave a leaf's x and z columns
+  (``sharding.xz_ranks``: a Mamba ``in_proj`` computing tensor-parallel on
+  ``model``): rank r's block is then x block r followed by z block r.
+  The spec stays the reference's, and the assembled leaf is the
+  reference's global leaf.
 
 A group of one rank makes no call at all.
 """
@@ -58,12 +68,44 @@ def psum_over(x, mesh, axes):
     return psum(x, mesh.axes(axes))
 
 
-def assemble(mesh, x, spec, extra=()):
+def _xz_block(x, m: int, r: int, key):
+    """Rank ``r``'s columns of ``[x | z]`` over ``m`` ranks: x block r
+    followed by z block r."""
+    n = x.shape[-1]
+    if n % (2 * m):
+        raise ValueError(f"{key}: {n // 2} Mamba channels do not divide "
+                         f"over model={m}")
+    c = n // (2 * m)
+    return torch.cat([x[..., r * c:(r + 1) * c],
+                      x[..., n // 2 + r * c:n // 2 + (r + 1) * c]], -1)
+
+
+def block(mesh, x, spec, key=None):
+    """This rank's block of the global leaf ``x`` under ``spec``; with the
+    leaf's ``key`` the block of a leaf whose x and z columns the rules
+    interleave (``sharding.xz_ranks``) is its compute columns, cut
+    without copying the whole leaf."""
+    spec = padded(spec, x.dim())
+    m = 1 if key is None else shd.xz_ranks(key, spec, mesh)
+    if m == 1:
+        return mesh.block(x, spec)
+    x = _xz_block(x, m, mesh.axes("model").index, key)
+    return mesh.block(x, PartitionSpec(*(tuple(spec[:-1]) + (None,))))
+
+
+def assemble(mesh, x, spec, extra=(), key=None):
     """The global tensor whose block under ``spec`` is ``x``, summed also
     over the ``extra`` axes: ``x`` written into a zero-filled global
     buffer, one psum over every axis named.  Without such axes (or on one
-    rank) ``x`` itself."""
+    rank) ``x`` itself.  With the leaf's ``key`` interleaved blocks
+    (:func:`block`) go back to the reference's columns."""
     spec = padded(spec, x.dim())
+    m = 1 if key is None else shd.xz_ranks(key, spec, mesh)
+    if m > 1:
+        full = assemble(mesh, x, spec, extra)
+        lead, n = full.shape[:-1], full.shape[-1]
+        return full.reshape(lead + (m, 2, n // (2 * m))).transpose(
+            -3, -2).reshape(lead + (n,))
     names = tuple(dict.fromkeys(spec_axes(spec) + tuple(extra)))
     if not names or math.prod(mesh.shape[a] for a in names) == 1:
         return x

@@ -65,12 +65,13 @@ def init_blocks(arch, gen, mesh, spec_tree):
     order = {id(w): i for i, w in enumerate(drawn)}
     keys, leaves = flatten(shapes)
     specs = shd.spec_leaves(spec_tree)
-    at = {order[id(x)]: s for x, s in zip(leaves, specs) if id(x) in order}
+    at = {order[id(x)]: (k, s) for k, x, s in zip(keys, leaves, specs)
+          if id(x) in order}
     count = itertools.count()
 
     def cut(w):
-        s = at.get(next(count))
-        return w if s is None else mesh.block(w, s)
+        ks = at.get(next(count))
+        return w if ks is None else zero.block(mesh, w, ks[1], ks[0])
 
     with layers.leaf_sink(cut):
         tree = arch.init(gen)
@@ -79,8 +80,9 @@ def init_blocks(arch, gen, mesh, spec_tree):
                            "the meta device")
     cut_ids = {id(x) for x in leaves if id(x) in order}
     _, got = flatten(tree)
-    return unflatten(tree, [x if id(m) in cut_ids else mesh.block(x, s)
-                            for x, m, s in zip(got, leaves, specs)])
+    return unflatten(tree, [x if id(m) in cut_ids
+                            else zero.block(mesh, x, s, k)
+                            for k, x, m, s in zip(keys, got, leaves, specs)])
 
 
 class ServeEngine:
@@ -92,10 +94,10 @@ class ServeEngine:
     (argmax); above 0 each token is a categorical draw (Gumbel-max) from
     the engine's own ``torch.Generator(seed)``, the same on every rank.
 
-    On a mesh the engine serves the token families (dense, moe; ssm and
-    hybrid while ``model`` holds one rank) under strategy ``"2d"``, with
-    ``batch_slots`` a multiple of the batch axes' size; any other layout
-    raises."""
+    On a mesh the engine serves the token families (dense, moe, ssm,
+    hybrid) under strategy ``"2d"``, with the attention heads and the
+    Mamba channels and heads dividing over ``model`` and ``batch_slots`` a
+    multiple of the batch axes' size; any other layout raises."""
 
     def __init__(self, arch, mesh=None, *, batch_slots: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
@@ -140,12 +142,16 @@ class ServeEngine:
             raise ValueError(f"the {cfg.family} family takes frontend "
                              f"embeddings the engine does not feed")
         mp, dp = tp_size(mesh), axis_size(mesh, batch_axes(mesh))
-        if mp > 1 and cfg.family not in ("dense", "moe"):
-            raise ValueError(f"the {cfg.family} family's Mamba layers are "
-                             f"not served tensor-parallel (model={mp})")
-        if mp > 1 and cfg.n_heads % mp:
+        if mp > 1 and cfg.family != "ssm" and cfg.n_heads % mp:
             raise ValueError(f"{cfg.n_heads} heads do not divide over "
                              f"model={mp}")
+        if mp > 1 and cfg.family in ("ssm", "hybrid"):
+            if cfg.d_inner % mp:
+                raise ValueError(f"the Mamba layers' {cfg.d_inner} channels "
+                                 f"do not divide over model={mp}")
+            if cfg.ssm_variant == "mamba2" and cfg.ssm_heads % mp:
+                raise ValueError(f"the Mamba-2 layers' {cfg.ssm_heads} "
+                                 f"heads do not divide over model={mp}")
         if self.B % dp:
             raise ValueError(f"{self.B} batch slots do not divide over the "
                              f"batch axes' {dp} ranks")
@@ -162,7 +168,8 @@ class ServeEngine:
         for i, x in enumerate(leaves):
             t = torch.as_tensor(x).to(self.device)
             out.append(t if self.mesh is None
-                       else self.mesh.block(t, self._specs[i]))
+                       else zero.block(self.mesh, t, self._specs[i],
+                                       keys[i]))
             del t
         self.params = unflatten(tree, out)
 

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import NamedSharding
+from repro_torch.parallel import zero
 from repro_torch.robust.guard import nan_leaves
 from repro_torch.tree import _children, flatten, unflatten
 
@@ -193,7 +194,9 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
     ``shardings``, a tree of ``core.distributed.NamedSharding`` leaves (or
     ``None`` for a whole leaf) in ``target_tree``'s structure, restores
     each tensor leaf as this rank's block of the saved global array under
-    its spec; the target's leaves then describe the global arrays.
+    its spec (``parallel.zero.block`` by the leaf's key: a Mamba
+    ``in_proj``'s block is its compute columns); the target's leaves then
+    describe the global arrays.
     """
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = _read_manifest(path, step)
@@ -227,7 +230,7 @@ def restore(ckpt_dir: str, step: int, target_tree: Any,
         if isinstance(tgt, torch.Tensor):
             leaf = torch.from_numpy(arr)
             if shards[i] is not None:
-                leaf = shards[i].mesh.block(leaf, shards[i].spec)
+                leaf = zero.block(shards[i].mesh, leaf, shards[i].spec, key)
             out.append(leaf.to(device=tgt.device))
         else:
             out.append(arr)

@@ -26,11 +26,12 @@ blocks, its whole-leaf reductions summed across ranks
 
 Under ``"2d"`` the ``model`` axis computes tensor-parallel
 (``parallel.tp``): the layers' weights are gathered over the batch axes
-only, each rank keeping its ``model`` block (Mamba layers are still
-gathered whole), and the ranks along ``model`` compute their heads, FFN
-columns, vocab columns and experts of the same batch block, the residual
-between layers held as the rank's sequence block
-(``act_sharding.constrain``).  The loss is replicated along ``model``, so
+only, each rank keeping its ``model`` block, and the ranks along
+``model`` compute their heads, FFN columns, vocab columns, Mamba channels
+and experts of the same batch block, the residual between layers held as
+the rank's sequence block (``act_sharding.constrain``; an SSM residual
+whole).  The loss is vocab-parallel (``train.loss``: the head's vocab
+columns stay the rank's) and replicated along ``model``, so
 every gradient is the rank's block, summed over the batch axes only.  A
 batch that does not divide the batch axes is sequence-sharded by the
 rules; its ranks gather the sequence (every rank computes the whole batch)
@@ -154,23 +155,27 @@ def state_specs(arch, optimizer, mesh):
 
 
 def block_tree(mesh, tree, spec_tree):
-    """This rank's block of every leaf of a global ``tree``."""
-    _, leaves = flatten(tree)
-    return unflatten(tree, [mesh.block(x, s) for x, s in
-                            zip(leaves, shd.spec_leaves(spec_tree))])
+    """This rank's block of every leaf of a global ``tree``
+    (``zero.block``: a Mamba ``in_proj``'s block is its compute
+    columns)."""
+    keys, leaves = flatten(tree)
+    return unflatten(tree, [zero.block(mesh, x, s, k) for k, x, s in
+                            zip(keys, leaves, shd.spec_leaves(spec_tree))])
 
 
 def unblock_tree(mesh, tree, spec_tree):
     """The global tree of this rank's blocks (every rank calls it: one
-    all-reduce per sharded leaf)."""
-    _, leaves = flatten(tree)
-    return unflatten(tree, [zero.assemble(mesh, x, s) for x, s in
-                            zip(leaves, shd.spec_leaves(spec_tree))])
+    all-reduce per sharded leaf), the reference's leaves."""
+    keys, leaves = flatten(tree)
+    return unflatten(tree, [zero.assemble(mesh, x, s, key=k)
+                            for k, x, s in
+                            zip(keys, leaves, shd.spec_leaves(spec_tree))])
 
 
 #: the stacked param trees whose layers the model gathers one at a time
 #: (``gather_layer_params`` in its layer loops); the hybrid's SSM loop
-#: calls no gather in the reference, so its stack is gathered whole
+#: calls no gather in the reference, so its stack is gathered at the top,
+#: every layer at once (its ``model`` blocks kept under tensor parallelism)
 PER_LAYER = ("layers", "encoder", "decoder")
 
 
@@ -247,9 +252,11 @@ def make_sharded_step(arch, optimizer, mesh, shapes, specs, b_specs, *,
             params = gather_params(blocks, pkeys, pspecs, mesh, roots,
                                    grad_axes)
             feats = arch.forward_features(params, batch)
+            # vocab-parallel: with the vocab on 'model' the head gives the
+            # rank's columns, and the loss combines them unassembled
             nll, hits, cnt = chunked_ce_sums(
-                lambda x: arch.head(params, x), feats, batch["labels"],
-                chunk=loss_chunk, mask=batch.get("mask"))
+                lambda x: arch.head(params, x, vocab_block=True), feats,
+                batch["labels"], chunk=loss_chunk, mask=batch.get("mask"))
             # global sums: one psum of the three; the local objective is
             # this rank's numerator over the global count, so that the
             # gradients summed over the batch axes are the global mean's

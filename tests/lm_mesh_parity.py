@@ -131,6 +131,103 @@ def hold(got, want, what, rtol_all=RTOL_10):
                                err_msg=f"{what}: all steps")
 
 
+# ------------------------------------------------ step-1 gradients
+#: the reference's step-1 gradient (before clipping) of a run on Auto
+#: meshes of each shape, from its ``init_state``, written to an npz
+REF_GRADS = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+sys.path.insert(0, "src")
+import dataclasses
+import numpy as np
+import jax
+from jax.sharding import AxisType
+from repro.configs import get_config
+from repro.models.registry import make_arch
+from repro.train import optim
+from repro.train.data import SyntheticLM
+from repro.train.step import init_state, jit_train_step, make_loss_fn
+run, path = json.loads(sys.argv[1]), sys.argv[2]
+cfg = dataclasses.replace(get_config(run["arch"], reduced=True),
+                          **run.get("cfg", {}))
+arch = make_arch(cfg)
+name, kw = run["opt"]
+opt = optim.OPTIMIZERS[name](optim.warmup_cosine(*run["lr"]), **kw)
+b, s = run["batch"]
+batch = SyntheticLM(cfg.vocab_size, b, s, seed=0).batch_at(0)
+shapes = jax.tree_util.tree_map(
+    lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch)
+loss_fn = make_loss_fn(arch)
+out = {}
+for shape in run["meshes"]:
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    _, _, state_sh, batch_sh = jit_train_step(arch, opt, mesh, shapes)
+    state = init_state(arch, opt, mesh, 0)
+    grad = jax.jit(lambda p, x: jax.grad(loss_fn, has_aux=True)(p, x)[0],
+                   in_shardings=(state_sh["params"], batch_sh))
+    g = grad(state["params"], batch)
+    for kp, x in jax.tree_util.tree_flatten_with_path(g)[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in kp)
+        out[f"{shape[0]}x{shape[1]}:{key}"] = np.asarray(x, np.float32)
+np.savez(path, **out)
+"""
+
+
+#: each leaf's norm of the port's step-1 gradient against the reference's
+#: on the same mesh (reduced falcon-mamba-7b and zamba2-1.2b in float32):
+#: the reference's own (1, 2) and (2, 2) gradients part from its (1, 1)
+#: by up to 5.4e-06 in a leaf's norm there, the port's from the
+#: reference's by up to 3.8e-06 (measured); a gradient summed twice over
+#: ``model``, or not summed, moves a leaf's norm by 0.29 or more
+GRAD_NORM_RTOL = 1e-4
+
+
+def hold_grads(got, want, what, rtol=GRAD_NORM_RTOL):
+    """Every leaf of ``want`` in ``got``, its norm within ``rtol``."""
+    assert sorted(got) == sorted(want), what
+    gaps = {k: abs(float(np.linalg.norm(got[k]))
+                   / float(np.linalg.norm(want[k])) - 1) for k in want}
+    bad = {k: v for k, v in gaps.items() if not v <= rtol}
+    assert not bad, f"{what}: leaf norms past rtol {rtol}: {bad}"
+
+
+def reference_grads(run, meshes, d) -> dict:
+    """``{mesh: {key: gradient}}``: the reference's step-1 gradient of
+    ``run`` (its loss, before clipping) on Auto meshes of each shape,
+    from its ``init_state`` (``d``: a scratch directory)."""
+    path = os.path.join(d, "ref_grads.npz")
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", REF_GRADS,
+                        json.dumps(dict(run, meshes=meshes)), str(path)],
+                       env=env, capture_output=True, text=True,
+                       timeout=1800, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = {tuple(m): {} for m in meshes}
+    with np.load(path) as z:
+        for name in z.files:
+            m, key = name.split(":")
+            out[tuple(map(int, m.split("x")))][key] = z[name]
+    return out
+
+
+def port_grads(run, meshes, d) -> dict:
+    """``{mesh: {key: gradient}}``: the port's step-1 gradient of ``run``
+    (``train.step``'s sharded step, gloo ranks, job ``lm_step``) on each
+    mesh, from the reference's initial state (``d``: a scratch
+    directory)."""
+    import torch
+    import torch_mesh
+    cfg = dataclasses.replace(get_config(run["arch"], reduced=True),
+                              **run.get("cfg", {}))
+    init = os.path.join(d, "init.pt")
+    torch.save(convert.train_state(reference_init(run), cfg, "cpu"), init)
+    return {m: torch_mesh.run_ranks({"name": "lm_step", "runs": [dict(
+        run, mesh=m, steps=1, grads=True, init=init)]},
+        m[0] * m[1], d)[0][0]["grads"] for m in meshes}
+
+
 # ------------------------------------------------ tensor-parallel parity
 #: float32 contract of the tensor-parallel tests: within rtol 1e-5 of each
 #: tensor's largest magnitude (the psums change the sum order)
@@ -145,12 +242,13 @@ def tp_close(got, want, what, rtol=TP_RTOL):
                                err_msg=what)
 
 
-def tp_run(job, cases, tmp_path_factory) -> dict:
+def tp_run(job, cases, tmp_path_factory, meshes=None) -> dict:
     """``{mesh shape: every rank's output}`` of the ``tests/torch_mesh.py``
-    job ``job`` over ``cases`` on each of :data:`TP_MESHES`."""
+    job ``job`` over ``cases`` on each of ``meshes`` (default
+    :data:`TP_MESHES`)."""
     import torch_mesh
     out = {}
-    for shape in TP_MESHES:
+    for shape in meshes or TP_MESHES:
         out[shape] = torch_mesh.run_ranks(
             {"name": job, "mesh": shape, "cases": cases},
             shape[0] * shape[1], tmp_path_factory.mktemp(job))
@@ -361,3 +459,17 @@ def hold_blocks(port, arch):
     assert one["mesh"]["counts"] == {}
     assert two[0][arch]["mesh"]["counts"]["all-reduce"] > 0
     return two[0][arch]["blocks"]
+
+
+def hold_channel_blocks(port, arch):
+    """On (1, 2) each rank holds half of a Mamba layer's channels: its
+    ``in_proj`` columns, ``out_proj`` rows and conv channels; (1, 1) makes
+    no collective, (1, 2) some."""
+    whole = port[(1, 1)][0][arch]["blocks"]
+    assert port[(1, 1)][0][arch]["mesh"]["counts"] == {}
+    for out in port[(1, 2)]:
+        blocks = out[arch]["blocks"]
+        for key, dim in (("in_proj", 2), ("out_proj", 1), ("conv_w", 1)):
+            w, b = whole[f"layers/ssm/{key}"], blocks[f"layers/ssm/{key}"]
+            assert b[dim] * 2 == w[dim] and b[:dim] == w[:dim], (key, b, w)
+        assert out[arch]["mesh"]["counts"]["all-reduce"] > 0

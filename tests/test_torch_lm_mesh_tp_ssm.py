@@ -6,15 +6,16 @@ model on the same weights (the reference's params through
 
 * The serving engine's compute (``act_sharding.zero3(train=False)``):
   logits and the rank's block of every weight gradient, for falcon-mamba
-  and zamba2 (their Mamba layers gathered whole this slice; zamba2's
-  shared attention computes tensor-parallel, and its sums in another
-  order reach the later groups' scans, whose gradients are held within
-  rtol 1e-4: measured up to 2.3e-5 of the leaf's largest magnitude on
-  ``A_log``).
+  and zamba2 (their Mamba layers on the rank's channels and heads, each
+  ``in_proj`` block the x and z columns of those channels; zamba2's
+  shared attention on the rank's heads; the sums in another order reach
+  the later layers' scans, whose gradients are held within rtol 1e-4:
+  measured up to 2.3e-5 of the leaf's largest magnitude on ``A_log``
+  while the Mamba layers were gathered whole).
 * A train step's compute (``train=True``): bfloat16-rounded layer weights
-  and the residual carried between layers as the rank's sequence block
-  (its recorded shape), logits against the unsharded forward on the same
-  rounded weights.
+  and the SSM residual carried whole between layers (``residual_ssm``:
+  its recorded shape holds all 8 positions), logits against the
+  unsharded forward on the same rounded weights.
 
 The dense and MoE configs: ``tests/test_torch_lm_mesh_tp.py``.
 Contract (float32): within rtol 1e-5 of each tensor's largest magnitude,
@@ -65,10 +66,10 @@ def test_forward_and_gradients(results, shape, name):
 @pytest.mark.parametrize("shape", MESHES)
 @pytest.mark.parametrize("name", TRAIN)
 def test_train_step_compute(results, shape, name):
-    """Sequence-parallel residuals: the carry between layers is the
-    rank's half of the 8 positions."""
+    """SSM residuals: the carry between layers is the whole sequence of 8
+    positions on every rank (the scan runs over it in order)."""
     for rank, out in enumerate(results[shape]):
         want, got = out[name]["out"]
         close(got, want, f"{name} rank {rank}: logits")
         carries = out[name]["carries"]
-        assert carries and all(c[1] == 4 for c in carries), carries
+        assert carries and all(c[1] == 8 for c in carries), carries

@@ -1,0 +1,47 @@
+"""``train.loop.train(mesh=)`` of the hybrid family with tensor-parallel
+Mamba-2 layers on the ``model`` axis, against the reference's own
+sharded loop on Auto meshes of the same shapes
+(``tests/lm_mesh_parity.py``), from the reference's initial state
+(restored onto the mesh: each ``in_proj`` block the x and z columns of
+the rank's channels): reduced zamba2-1.2b (each rank computes 4 of the 8
+Mamba-2 heads and 2 of the shared attention's 4; ``B_proj`` / ``C_proj``
+whole on every rank, their gradient summed once; the loss
+vocab-parallel), AdamW (``warmup_cosine(3e-3, 5, 60)``, no weight
+decay), ``SyntheticLM`` batch 4 x 32, 4 steps, every step logged, on (1,
+2) (two gloo ranks; (2, 2):
+``tests/test_torch_lm_mesh_train_hybrid_dp.py``).  Contract: logged
+losses within rtol 1e-5 (``lm_mesh_parity.RTOL_4``); every rank holds
+its ``model`` block of the Mamba weights.  The SSM family:
+``tests/test_torch_lm_mesh_train_ssm.py``.
+"""
+import pytest
+
+import lm_mesh_parity as lmp
+import torch_mesh
+from lm_train_parity import one_thread  # noqa: F401  (autouse)
+
+ARCH = "zamba2-1.2b"
+MESHES = [(1, 2)]
+RUNS = [dict(lmp.ADAMW, arch=ARCH, mesh=m, steps=4) for m in MESHES]
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return lmp.reference_losses(RUNS)
+
+
+@pytest.mark.parametrize("i", range(len(RUNS)),
+                         ids=[f"{m[0]}x{m[1]}" for m in MESHES])
+def test_mesh_holds_the_reference(tmp_path, reference, i):
+    run = lmp.start_from_reference(RUNS[i], tmp_path / "ckpt")
+    world = run["mesh"][0] * run["mesh"][1]
+    outs = torch_mesh.run_ranks({"name": "lm_train", "runs": [run]}, world,
+                                tmp_path)
+    torch_mesh.same_on_every_rank([o[0]["hist"] for o in outs])
+    lmp.hold(outs[0][0]["hist"], reference[i], f"{ARCH} {run['mesh']}",
+             lmp.RTOL_4)
+    blocks = outs[0][0]["blocks"]
+    assert blocks["layers/ssm/in_proj"] == (4, 128, 256)
+    assert blocks["layers/ssm/dt_proj"] == (4, 128, 4)
+    assert blocks["layers/ssm/B_proj"] == (4, 128, 16)
+    assert blocks["shared_attn/attn/wq"] == (128, 2, 32)

@@ -11,8 +11,9 @@ seed on each rank; plus qwen at temperature 0.8 (every rank draws the
 same Gumbel noise), and qwen at d_model 1024, whose weights' D
 dimension is also sharded over ``data`` on (2, 2).  Held: the same tokens, and every step's logits
 within rtol 1e-5 of their largest magnitude.  The layouts the engine
-cannot serve raise: strategy ``"dp"``, Mamba layers on ``model`` > 1, a
-batch that does not divide the batch axes, the VLM family.  So do an
+cannot serve raise: strategy ``"dp"``, Mamba-2 heads that do not divide
+over ``model`` > 1, a batch that does not divide the batch axes, the VLM
+family.  So do an
 engine's blocks computed on outside its sharded compute
 (``arch.forward(eng.params, ...)``) and, under tensor parallelism, a
 weight that did not come through the layer gather.
@@ -47,7 +48,10 @@ def results(tmp_path_factory):
     qwen = get_config("qwen1.5-0.5b", reduced=True)
     refusals = {
         "dp": (qwen, {"batch_slots": 2}, "dp"),
-        "ssm": (get_config("falcon-mamba-7b", reduced=True),
+        # one Mamba-2 head of 256 channels: its heads do not divide
+        "ssm": (dataclasses.replace(get_config("zamba2-1.2b",
+                                               reduced=True),
+                                    ssm_head_dim=256),
                 {"batch_slots": 2}, "2d"),
         "slots": (qwen, {"batch_slots": 3}, "2d"),
         "vlm": (get_config("qwen2-vl-72b", reduced=True),

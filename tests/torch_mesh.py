@@ -22,7 +22,7 @@ import multiprocessing
 import os
 import time
 import traceback
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -429,6 +429,72 @@ def job_lm_train(job):
     return out
 
 
+def job_lm_step(job):
+    """Sharded train steps of each run (the :func:`lm_setup` keys, mesh,
+    steps) from the seeded initial state, or from the global train state
+    saved at ``init`` (``torch.save``): per step the loss, the gradient
+    norm and the all-reduces made (count, and the (shape, dtype) of
+    each); with ``delta`` also the global params' change of step 1, with
+    ``grads`` the global gradient of step 1 (before clipping)."""
+    import dataclasses
+    from repro_torch.core import distributed as D
+    from repro_torch.train.step import (block_tree, init_state,
+                                        jit_train_step, state_specs,
+                                        unblock_tree)
+    out = []
+    for run in job["runs"]:
+        mesh = D.make_mesh(run["mesh"], ("data", "model"), "cpu")
+        arch, opt, data = lm_setup(run)
+        seen_grads = []
+        if run.get("grads"):
+            def spy_update(grads, *a, update=opt.update, **k):
+                seen_grads.append(grads)
+                return update(grads, *a, **k)
+            opt = dataclasses.replace(opt, update=spy_update)
+        batch0 = data.batch_at(0)
+        fn = jit_train_step(arch, opt, mesh, {
+            k: torch.empty(np.shape(v), device="meta",
+                           dtype=torch.as_tensor(v).dtype)
+            for k, v in batch0.items()})[0]
+        specs = state_specs(arch, opt, mesh)[1]
+        state = (block_tree(mesh, torch.load(run["init"]), specs)
+                 if run.get("init") else init_state(arch, opt, mesh, 0,
+                                                    "cpu"))
+        p0 = unblock_tree(mesh, state, specs)["params"] \
+            if run.get("delta") else None
+        steps, seen, spy = [], [], D._all_reduce
+
+        def record(x, ax, op):
+            seen.append((tuple(x.shape), str(x.dtype)))
+            return spy(x, ax, op)
+
+        for i in range(run["steps"]):
+            batch = {k: torch.as_tensor(v)
+                     for k, v in data.batch_at(i).items()}
+            seen.clear()
+            D._all_reduce = record
+            try:
+                state, m = fn(state, batch)
+            finally:
+                D._all_reduce = spy
+            steps.append({"loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "all_reduces": list(seen)})
+            if i == 0 and p0 is not None:
+                p1 = unblock_tree(mesh, state, specs)["params"]
+                keys, a = flatten(p0)
+                delta = {k: _np(x - y) for k, x, y in
+                         zip(keys, a, flatten(p1)[1])}
+        res = {"steps": steps}
+        if p0 is not None:
+            res["delta"] = delta
+        if seen_grads:
+            g = unblock_tree(mesh, seen_grads[0], specs["params"])
+            res["grads"] = {k: _np(x) for k, x in zip(*flatten(g))}
+        out.append(res)
+    return out
+
+
 def _tree_np(tree):
     if isinstance(tree, dict):
         return {k: _tree_np(v) for k, v in tree.items()}
@@ -524,16 +590,17 @@ def _tp_case(fn, tree, specs, args, mesh):
     block of the whole gradients beside the sharded gradients, and the
     float args' gradients."""
     from repro_torch.parallel import act_sharding as act
+    from repro_torch.parallel import zero
     keys, leaves = flatten(tree)
-    blocks = _unflat(tree, [mesh.block(x, s) for x, s in zip(leaves,
-                                                            specs)])
+    blocks = _unflat(tree, [zero.block(mesh, x, s, k) for k, x, s in
+                            zip(keys, leaves, specs)])
     full, g_full, a_full = _vjp(fn, tree, args)
     with act.zero3(mesh, dict(zip(keys, specs)), (), train=False):
         got, g_got, a_got = _vjp(
             lambda t, *a: fn(act.gather_layer_params(t), *a), blocks, args)
     return {"out": (_np(full), _np(got)),
-            "grads": {k: (_np(mesh.block(g, s)), _np(h)) for k, g, h, s in
-                      zip(keys, g_full, g_got, specs)},
+            "grads": {k: (_np(zero.block(mesh, g, s, k)), _np(h))
+                      for k, g, h, s in zip(keys, g_full, g_got, specs)},
             "arg_grads": [(_np(g), _np(h)) for g, h in zip(a_full, a_got)],
             "blocks": {k: tuple(b.shape) for k, b in
                        zip(keys, flatten(blocks)[1])}}
@@ -603,6 +670,14 @@ def job_tp_modules(job):
         lp, specs = _layer0(params, "layers", mesh)
         x = torch.as_tensor(c["x"])
         pos = torch.arange(x.shape[1])[None].expand(x.shape[:2])
+        if kind == "mamba":
+            sub = [s for k, s in zip(flatten(lp)[0], specs)
+                   if k.startswith("ssm/")]
+            state = [torch.as_tensor(c[k]) for k in ("h0", "conv0")
+                     if k in c]
+            out[name] = _tp_case(_mamba_fn(cfg), {"ssm": lp["ssm"]}, sub,
+                                 (x, *state), mesh)
+            continue
         if kind == "mlp":
             sub = [s for k, s in zip(flatten(lp)[0], specs)
                    if k.startswith("mlp/")]
@@ -620,6 +695,120 @@ def job_tp_modules(job):
                     t, h, cfg, torch.float32, pos,
                     use_moe=cfg.family == "moe"), lp, specs, (x,), mesh)
     return out
+
+
+def _mamba_fn(cfg):
+    """A Mamba layer of ``cfg`` as one tensor: its output, and with an
+    initial state (h0, conv0) also the new ``h`` and ``conv`` (the rank's
+    channel blocks under tensor parallelism, cut from the whole initial
+    state and assembled, exactly, so that both sides compare whole)."""
+    from repro_torch.models import mamba
+    from repro_torch.parallel import tp
+    fwd = (mamba.mamba1_forward if cfg.ssm_variant == "mamba1"
+           else mamba.mamba2_forward)
+
+    def fn(t, x, h0=None, conv0=None):
+        p = t["ssm"]
+        if h0 is None:
+            return fwd(p, x, cfg, torch.float32)
+        ax = mamba.channel_axis(p)
+        out, h, conv = fwd(p, x, cfg, torch.float32,
+                           h0=tp.split(h0, ax, 1),
+                           conv0=tp.split(conv0, ax, 2), return_state=True)
+        return torch.cat([out.flatten(), tp.assemble(h, ax, 1).flatten(),
+                          tp.assemble(conv, ax, 2).flatten()])
+    return fn
+
+
+def job_vocab_ce(job):
+    """The vocab-parallel cross entropy (``train.loss.chunked_ce_sums`` on
+    the head's ``tp.VocabBlock``) on the mesh ``job["mesh"]`` against the
+    unsharded one on the whole head, for each case (features, labels,
+    mask, the head's weight and whether it is the tied table): the sums,
+    the gradients of the features and of the weight (the rank's block of
+    the whole one), the collectives, and the tokens whose whole row has
+    its maximum on more than one rank."""
+    from repro_torch.core.distributed import P, count_collectives, make_mesh
+    from repro_torch.models import layers
+    from repro_torch.parallel import act_sharding as act
+    from repro_torch.parallel import zero
+    from repro_torch.train.loss import chunked_ce_sums
+    mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
+    ax = mesh.axes("model")
+    out = {}
+    for name, c in job["cases"].items():
+        feats = torch.as_tensor(c["feats"])
+        labels = torch.as_tensor(c["labels"])
+        mask = torch.as_tensor(c["mask"])
+        w = torch.as_tensor(c["w"])
+        tied = c["tied"]
+        root, leaf, spec = (("embed", "embedding", P("model", None))
+                            if tied else ("lm_head", "kernel",
+                                          P(None, "model")))
+        head = layers.unembed if tied else layers.lm_head
+
+        def sums(weight, f, vocab_block, sharded):
+            if sharded:
+                weight = act.gather_leaf(f"{root}/{leaf}", weight, mesh,
+                                         spec, (), None, ax)
+            return chunked_ce_sums(lambda x: head({leaf: weight}, x,
+                                                  vocab_block),
+                                   f, labels, chunk=c["chunk"],
+                                   z_loss=c["z_loss"], mask=mask)
+
+        res = {}
+        for which in ("whole", "sharded"):
+            sharded = which == "sharded"
+            wt = zero.block(mesh, w, spec) if sharded else w
+            with torch.enable_grad():
+                wt = wt.detach().requires_grad_(True)
+                f = feats.detach().requires_grad_(True)
+                with count_collectives() as cc:
+                    ctx = (act.zero3(mesh, {}, (), train=True) if sharded
+                           else nullcontext())
+                    with ctx:          # the backward recomputes inside
+                        nll, hits, cnt = sums(wt, f, True, sharded)
+                        gw, gf = torch.autograd.grad(nll, (wt, f))
+            res[which] = {"sums": [float(x.detach()) for x in
+                                   (nll, hits, cnt)],
+                          "g_w": _np(gw), "g_f": _np(gf),
+                          "counts": dict(cc.counts)}
+        res["whole"]["g_w_block"] = _np(zero.block(
+            mesh, torch.as_tensor(res["whole"]["g_w"]), spec))
+        logits = (feats @ (w.T if tied else w)).reshape(-1, w.shape[
+            0 if tied else 1])
+        top = logits.max(-1, keepdim=True).values
+        n_loc = logits.shape[-1] // ax.size
+        owners = (logits == top).reshape(logits.shape[0], ax.size,
+                                         n_loc).any(-1).sum(-1)
+        res["straddling_ties"] = int((owners > 1).sum())
+        out[name] = res
+    return out
+
+
+def job_mamba_layout(job):
+    """The Mamba ``in_proj`` layout on the mesh ``job["mesh"]`` under the
+    strategy ``job["strategy"]`` (default ``"2d"``): this rank's block of
+    the global params (``train.step.block_tree``), the tree assembled back
+    from every rank's blocks (``unblock_tree``) and the specs."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.parallel import mesh as M
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import block_tree, unblock_tree
+    M.set_strategy(job.get("strategy", "2d"))
+    try:
+        mesh = make_mesh(job["mesh"], ("data", "model"), "cpu")
+        params = _torch_tree(job["params"])
+        specs = shd.infer_param_specs(params, mesh)
+        blocks = block_tree(mesh, params, specs)
+        return {"blocks": _tree_np(blocks),
+                "assembled": _tree_np(unblock_tree(mesh, blocks, specs)),
+                "specs": {k: [list(a) if isinstance(a, tuple) else a
+                              for a in s] for k, s in
+                          zip(flatten(params)[0], shd.spec_leaves(specs))},
+                "coord": dict(mesh.coord)}
+    finally:
+        M.set_strategy("2d")
 
 
 def _sharded_model(arch, params, mesh):
@@ -678,12 +867,13 @@ def _forward_case(arch, params, batch, mesh, train):
                 transformer.scan_layers_remat = scan
                 encdec.scan_layers_remat = scan
         return {"out": (_np(full), _np(got)), "carries": carries}
+    from repro_torch.parallel import zero
     full, g_full, _ = _vjp(lambda t: fwd(t), params, ())
     with act.zero3(mesh, lspecs, (), train=False):
         got, g_got, _ = _vjp(lambda b: fwd(gather(b)), blocks, ())
     return {"out": (_np(full), _np(got)),
-            "grads": {k: (_np(mesh.block(g, s)), _np(h)) for k, g, h, s in
-                      zip(keys, g_full, g_got, specs)}}
+            "grads": {k: (_np(zero.block(mesh, g, s, k)), _np(h))
+                      for k, g, h, s in zip(keys, g_full, g_got, specs)}}
 
 
 def _serve_case(arch, params, tokens, feed, max_len, mesh):
@@ -864,7 +1054,9 @@ JOBS = {"rollouts": job_rollouts, "steps": job_steps, "env": job_env,
         "restore": job_restore, "card": job_card,
         "collectives": job_collectives, "lm_train": job_lm_train,
         "optim": job_optim, "tp_modules": job_tp_modules,
-        "tp_models": job_tp_models, "serve_mesh": job_serve_mesh}
+        "tp_models": job_tp_models, "serve_mesh": job_serve_mesh,
+        "vocab_ce": job_vocab_ce, "mamba_layout": job_mamba_layout,
+        "lm_step": job_lm_step}
 
 
 def same_on_every_rank(outs):
