@@ -1,0 +1,6 @@
+"""peak_gib: ``torch.cuda.max_memory_allocated()`` over set-up and window,
+in GiB."""
+
+
+def read(tr, ctx):
+    return ctx["peak_bytes"] / 2**30
