@@ -1,0 +1,8 @@
+"""radio_host_ms_per_tti: the host time of the program's ``crrm.radio``
+and ``crrm.radio_init`` spans over the window's TTIs, in milliseconds
+(``harness/spans.py``)."""
+from crrm_bench.harness import spans
+
+
+def read(tr, ctx):
+    return spans.host_ms_per_tti(tr, ctx, spans.RADIO)

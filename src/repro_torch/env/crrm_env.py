@@ -35,6 +35,10 @@ params', as ``outage_storm`` sets it).  ``mesh=`` shards the UE axis of
 the engine over a ``core.distributed.Mesh`` (each rank steps the global
 state and gets it back); the batched surfaces then raise.
 
+Each step call opens the host-only span ``crrm.env.step`` (an autoreset's
+fresh episode ``crrm.env.reset``, the scoring ``crrm.env.score``) around
+the engine's own spans (``repro_torch.obs.profile.SPANS``).
+
 >>> env = CrrmEnv(scenario="dense_urban", scenario_overrides=dict(n_ues=50),
 ...               device="cpu")
 >>> state, obs = env.reset(0)
@@ -50,6 +54,7 @@ from repro_torch.core.crrm import CRRM
 from repro_torch.core.params import CRRM_parameters
 from repro_torch.mac.engine import (Draws, env_slice, seed_churn_state,
                                      stationary_served_tput)
+from repro_torch.obs.profile import annotate
 from repro_torch.sim import radio
 
 
@@ -305,6 +310,10 @@ class CrrmEnv:
         constructed with ``telemetry=True`` a fifth element is appended:
         ``{"telemetry": Telemetry, "reward_components": dict}``.
         """
+        with annotate("crrm.env.step"):
+            return self._step(state, action, fairness_p)
+
+    def _step(self, state, action, fairness_p):
         if self.resample_topology:
             ep, static = state.ep, state.static
         else:
@@ -313,22 +322,27 @@ class CrrmEnv:
         draws = self._draws(int(ep.seed), self.device)
         ep, tput, *telem = self._fns.rollout(static, ep, self.tti_per_step,
                                              draws, power, fairness_p)
-        obs = EnvObs(tput=tput.mean(dim=0), backlog=ep.backlog)
-        return self._scored(ep, static, obs, telem, self._reward_fn(obs))
+        return self._scored(ep, static, tput, telem, self._reward_fn)
 
-    def _scored(self, ep, static, obs, telem, reward):
-        """``(state, obs, reward, done[, info])`` after a decision window;
-        ``telem`` is the rollout's telemetry in a list (empty when off)."""
-        done = ep.t >= self.episode_tti
-        if self.resample_topology:
-            state = TopoEnvState(ep=ep, static=static)
-        else:
-            state = ep
-        if self.telemetry:
-            info = {"telemetry": telem[0],
-                    "reward_components": self._components(obs, telem[0])}
-            return state, obs, reward, done, info
-        return state, obs, reward, done
+    def _scored(self, ep, static, tput, telem, reward_fn):
+        """``(state, obs, reward, done[, info])`` after a decision window:
+        ``tput`` is the rollout's (.., n_tti, n_ues) throughput, ``telem``
+        its telemetry in a list (empty when off), ``reward_fn(obs)`` the
+        reward (one per env along a batch)."""
+        with annotate("crrm.env.score"):
+            obs = EnvObs(tput=tput.mean(dim=-2), backlog=ep.backlog)
+            reward = reward_fn(obs)
+            done = ep.t >= self.episode_tti
+            if self.resample_topology:
+                state = TopoEnvState(ep=ep, static=static)
+            else:
+                state = ep
+            if self.telemetry:
+                info = {"telemetry": telem[0],
+                        "reward_components": self._components(obs,
+                                                              telem[0])}
+                return state, obs, reward, done, info
+            return state, obs, reward, done
 
     def _components(self, obs, telem):
         """:func:`reward_components`, one env at a time along a batch."""
@@ -358,12 +372,14 @@ class CrrmEnv:
         if reset_seed is None:
             raise ValueError("step_autoreset needs reset_seed= (the seed "
                              "of the replacement episode)")
-        out = self.step(state, action, fairness_p)
-        state, done = out[0], out[3]
-        fresh = _fresh_like(self.reset(reset_seed)[0], state)
-        state = type(state)(*(
-            None if new is None else torch.where(done, new, old)
-            for new, old in zip(fresh, state)))
+        with annotate("crrm.env.step"):
+            out = self._step(state, action, fairness_p)
+            state, done = out[0], out[3]
+            with annotate("crrm.env.reset"):
+                fresh = _fresh_like(self.reset(reset_seed)[0], state)
+                state = type(state)(*(
+                    None if new is None else torch.where(done, new, old)
+                    for new, old in zip(fresh, state)))
         return (state,) + out[1:]
 
     # ------------------------------------------------------------- batched
@@ -389,6 +405,10 @@ class CrrmEnv:
         env b.  Each env's radio side runs on its own draws; the MAC runs
         batched.  Returns ``(states, EnvObs, reward (B,), done (B,)[,
         info])``."""
+        with annotate("crrm.env.step"):
+            return self._step_batch(states, actions, fairness_p)
+
+    def _step_batch(self, states, actions, fairness_p):
         self._no_mesh()
         if self.resample_topology:
             ep, static = states.ep, states.static
@@ -398,10 +418,9 @@ class CrrmEnv:
         draws = [self._draws(s, self.device) for s in ep.seed.tolist()]
         ep, tput, *telem = self._fns.rollout(static, ep, self.tti_per_step,
                                              draws, power, fairness_p)
-        obs = EnvObs(tput=tput.mean(dim=1), backlog=ep.backlog)
-        reward = torch.stack([self._reward_fn(env_slice(obs, b))
-                              for b in range(tput.shape[0])])
-        return self._scored(ep, static, obs, telem, reward)
+        return self._scored(ep, static, tput, telem, lambda obs: torch.stack(
+            [self._reward_fn(env_slice(obs, b))
+             for b in range(tput.shape[0])]))
 
     def step_autoreset_batch(self, states, actions, reset_seeds,
                              fairness_p=None):
@@ -414,13 +433,16 @@ class CrrmEnv:
                 "the reset would recompute the radio chain at every "
                 "episode boundary; drive resampled episodes with explicit "
                 "reset_batch() calls instead")
-        out = self.step_batch(states, actions, fairness_p)
-        states, done = out[0], out[3]
-        fresh = _fresh_like(self.reset_batch(reset_seeds)[0], states)
-        states = type(states)(*(
-            None if new is None else torch.where(
-                done.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-            for new, old in zip(fresh, states)))
+        with annotate("crrm.env.step"):
+            out = self._step_batch(states, actions, fairness_p)
+            states, done = out[0], out[3]
+            with annotate("crrm.env.reset"):
+                fresh = _fresh_like(self.reset_batch(reset_seeds)[0], states)
+                states = type(states)(*(
+                    None if new is None else torch.where(
+                        done.reshape((-1,) + (1,) * (new.dim() - 1)), new,
+                        old)
+                    for new, old in zip(fresh, states)))
         return (states,) + out[1:]
 
 

@@ -36,6 +36,12 @@ bitwise for rr and max_cqi, and for attachment, serving cell and
 positions; within 1e-5 for pf's floats, whose cross-shard sum reorders a
 float reduction (under bursty traffic an ulp residue can flip a
 backlog-active mask, so pf is held at full buffer).
+
+Each call, TTI and stage runs inside a host-only span named in
+``repro_torch.obs.profile.SPANS`` (``crrm.rollout``, ``crrm.tti``,
+``crrm.radio``, ``crrm.sched``, ...), so a profiler trace ties every
+kernel to the stage that launched it; with no profiler recording a span
+costs one flag read.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 from repro_torch.core import distributed as mesh_ops
 from repro_torch.mac import scheduler as mac_sched
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.profile import annotate
 from repro_torch.sim import deploy, mobility, radio
 from repro_torch.sim import faults as sim_faults
 
@@ -625,7 +632,11 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     def attach(R_like):
         return radio.attachment(R_like, cell_ax)
 
-    def a3_step(a, ttt, meas_wb):
+    def handover(a, ttt, meas_wb, born):
+        """The A3 step on the wideband measurement ``meas_wb``; under churn
+        the newborns (``born``) first attach to their best cell."""
+        if churn_on:
+            a = torch.where(born, torch.argmax(meas_wb, dim=1).to(a.dtype), a)
         return a3_handover(a, ttt, meas_wb, hyst_db, ttt_tti, cell_ax)
 
     def allocate(se, cqi, a, buf, avg, cursor, harq_pending, act, fair):
@@ -720,80 +731,84 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         act, fad_c, born, born_idx, n_born = state.active, state.fad, \
             None, None, None
         if churn_on:
-            act, born, n_born = mobility.birth_death_step(
-                draws.churn_birth(t, lam), draws.churn_death(t, p_dep, n_ues),
-                act, churn)
-            # departed rows idle out; reborn slots then reset fresh (a
-            # slot can depart and be re-occupied within one TTI)
-            buf = torch.where(act, buf, 0.0)
-            avg = torch.where(act, avg, 0.0)
-            hbits = torch.where(act, hbits, 0.0)
-            hretx = torch.where(act, hretx, 0)
-            ttt = torch.where(act, ttt, 0)
-            buf = torch.where(born, churn.newborn_backlog_bits, buf)
-            avg = torch.where(born, 0.0, avg)
-            hbits = torch.where(born, 0.0, hbits)
-            hretx = torch.where(born, 0, hretx)
-            ttt = torch.where(born, 0, ttt)
-            born_idx = radio.dirty_indices(born, max_birth)
-            U = scatter_born(U, born_idx, draws.churn_positions(
-                t, max_birth, p.extent_m, p.h_ut_m), n_born)
-            if fad_carried:
-                fad_c = scatter_born(fad_c, born_idx, draws.churn_fading(
-                    t, cfg, max_birth, n_cells), n_born)
+            with annotate("crrm.churn"):
+                act, born, n_born = mobility.birth_death_step(
+                    draws.churn_birth(t, lam),
+                    draws.churn_death(t, p_dep, n_ues), act, churn)
+                # departed rows idle out; reborn slots then reset fresh (a
+                # slot can depart and be re-occupied within one TTI)
+                buf = torch.where(act, buf, 0.0)
+                avg = torch.where(act, avg, 0.0)
+                hbits = torch.where(act, hbits, 0.0)
+                hretx = torch.where(act, hretx, 0)
+                ttt = torch.where(act, ttt, 0)
+                buf = torch.where(born, churn.newborn_backlog_bits, buf)
+                avg = torch.where(born, 0.0, avg)
+                hbits = torch.where(born, 0.0, hbits)
+                hretx = torch.where(born, 0, hretx)
+                ttt = torch.where(born, 0, ttt)
+                born_idx = radio.dirty_indices(born, max_birth)
+                U = scatter_born(U, born_idx, draws.churn_positions(
+                    t, max_birth, p.extent_m, p.h_ut_m), n_born)
+                if fad_carried:
+                    fad_c = scatter_born(fad_c, born_idx, draws.churn_fading(
+                        t, cfg, max_birth, n_cells), n_born)
         # -- cell faults: one Markov transition, then the per-cell tx mask
         cs, changed = state.cell_state, None
         if faults_on:
-            cs, changed = sim_faults.fault_step(
-                draws.fault_uniform(t, n_cells), cs, tti_s, faults)
-            P = P * local_cols(sim_faults.tx_multiplier(cs, faults),
-                               axis=0)[:, None]
+            with annotate("crrm.faults"):
+                cs, changed = sim_faults.fault_step(
+                    draws.fault_uniform(t, n_cells), cs, tti_s, faults)
+                P = P * local_cols(sim_faults.tx_multiplier(cs, faults),
+                                   axis=0)[:, None]
         # -- channel: incremental state, per-TTI recompute, or constants ---
         r = rs if rs is not None else h.get("rs")
         if r is not None:
             f_inc = fad_c if fad_carried else inc_fad(static)
             if rs is not None:              # carried: rows or cells change
-                U, r, n_dirty = inc_channel(static, r, U, P, draws, t, f_inc,
-                                            born_idx, n_born)
-                if faults_on:
-                    # a transition re-prices every UE against the masked P
-                    # from the carried gains (selected on any(changed))
-                    r = radio.radio_update_cells(cfg, r, P, changed,
-                                                 cell_axis=cell_ax)
+                with annotate("crrm.radio"):
+                    U, r, n_dirty = inc_channel(static, r, U, P, draws, t,
+                                                f_inc, born_idx, n_born)
+                    if faults_on:
+                        # a transition re-prices every UE against the
+                        # masked P from the carried gains (selected on
+                        # any(changed))
+                        r = radio.radio_update_cells(cfg, r, P, changed,
+                                                     cell_axis=cell_ax)
                 rs = r
             if ho_on:
-                if churn_on:
-                    # newborns attach instantly to their best cell
-                    a_srv = torch.where(born, torch.argmax(r.meas, dim=1).to(
-                        a_srv.dtype), a_srv)
-                a_srv, ttt = a3_step(a_srv, ttt, r.meas)
-                a_use = a_srv
-                se, cqi = gather_serving(r.se_all, r.cqi_all, a_use)
+                with annotate("crrm.handover"):
+                    a_srv, ttt = handover(a_srv, ttt, r.meas, born)
+                    a_use = a_srv
+                    se, cqi = gather_serving(r.se_all, r.cqi_all, a_use)
             else:
                 se, cqi, a_use = r.se, r.cqi, r.a
         elif mobility_step_m is not None or churn_on:
             # with churn alone the geometry still changes per TTI (births
             # move rows), so the full chain recomputes from the current U
-            if mobility_step_m is not None:
-                d, _ = walk_displacements(draws, t, U)
-                U = mobility.apply_walk(U, d, p.extent_m)
-            G0 = radio.pathgains(cfg, U, static.C, static.bore)
-            fad = (draw_fading(draws, t) if per_tti_fading
-                   else (fad_c if fad_carried else static.fad))
-            R = radio.rsrp(radio.apply_fading(G0, fad), P)
-            R_meas = radio.rsrp(G0, P) if attach_on_mean else R
-            a_inst = attach(R_meas)
-        elif per_tti_fading or power_act or faults_on:
-            fad = draw_fading(draws, t) if per_tti_fading else static.fad
-            R = radio.rsrp(radio.apply_fading(h["G"], fad), P)
-            if power_act or faults_on:
-                # the action / fault mask changes P: measurement and
-                # attachment recompute from the hoisted gain
-                R_meas = radio.rsrp(h["G"], P) if attach_on_mean else R
+            with annotate("crrm.radio"):
+                if mobility_step_m is not None:
+                    d, _ = walk_displacements(draws, t, U)
+                    U = mobility.apply_walk(U, d, p.extent_m)
+                G0 = radio.pathgains(cfg, U, static.C, static.bore)
+                fad = (draw_fading(draws, t) if per_tti_fading
+                       else (fad_c if fad_carried else static.fad))
+                R = radio.rsrp(radio.apply_fading(G0, fad), P)
+                R_meas = radio.rsrp(G0, P) if attach_on_mean else R
                 a_inst = attach(R_meas)
-            else:
-                R_meas = h["R_mean"] if attach_on_mean else R
-                a_inst = h["a"] if attach_on_mean else attach(R)
+        elif per_tti_fading or power_act or faults_on:
+            with annotate("crrm.radio"):
+                fad = (draw_fading(draws, t) if per_tti_fading
+                       else static.fad)
+                R = radio.rsrp(radio.apply_fading(h["G"], fad), P)
+                if power_act or faults_on:
+                    # the action / fault mask changes P: measurement and
+                    # attachment recompute from the hoisted gain
+                    R_meas = radio.rsrp(h["G"], P) if attach_on_mean else R
+                    a_inst = attach(R_meas)
+                else:
+                    R_meas = h["R_mean"] if attach_on_mean else R
+                    a_inst = h["a"] if attach_on_mean else attach(R)
         else:
             R = R_meas = a_inst = None   # fully static radio chain
 
@@ -802,18 +817,19 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
             if ho_on:
                 meas_wb = (R_meas.sum(dim=-1) if R_meas is not None
                            else h["meas_wb"])
-                if churn_on:
-                    a_srv = torch.where(born, torch.argmax(meas_wb, dim=1).to(
-                        a_srv.dtype), a_srv)
-                a_srv, ttt = a3_step(a_srv, ttt, meas_wb)
-                a_use = a_srv
+                with annotate("crrm.handover"):
+                    a_srv, ttt = handover(a_srv, ttt, meas_wb, born)
+                    a_use = a_srv
+                    if R is None:
+                        se, cqi = gather_serving(h["se_all"], h["cqi_all"],
+                                                 a_use)
                 if R is not None:
-                    se, cqi, _ = sinr_chain(R, a_use, meas=meas_wb)
-                else:
-                    se, cqi = gather_serving(h["se_all"], h["cqi_all"], a_use)
+                    with annotate("crrm.radio"):
+                        se, cqi, _ = sinr_chain(R, a_use, meas=meas_wb)
             elif R is not None:
-                se, cqi, a_use = sinr_chain(R, a_inst,
-                                            meas=R_meas.sum(dim=-1))
+                with annotate("crrm.radio"):
+                    se, cqi, a_use = sinr_chain(R, a_inst,
+                                                meas=R_meas.sum(dim=-1))
             else:
                 se, cqi, a_use = static.se, static.cqi, static.a
         if faults_on and not ho_on:
@@ -833,42 +849,46 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         buf, avg = state.backlog, state.pf_avg
         hbits, hretx, act = state.harq_bits, state.harq_retx, state.active
         if traffic_step is not None:
-            arrivals = local_rows(draw(lambda d, t: d.traffic(t,
-                                                              traffic_step)))
-            if churn_on:
-                arrivals = torch.where(act, arrivals, 0.0)
-            buf = buf + arrivals
-        harq_pending = ((hbits > 0.0) if harq_on
-                        else torch.zeros_like(buf, dtype=torch.bool))
-        alloc = allocate(se, cqi, a_use, buf, avg, state.rr_cursor,
-                         harq_pending, act, fair)
-        drainable = torch.where(harq_pending, 0.0, buf)
-        tb_new = mac_sched.served_bits(
-            alloc, se, drainable, rb_bw, tti_s,
-            floor=1e-6 if relax is not None else 1e-30).sum(dim=-1)
-        hstats = None
-        if harq_on:
-            u = local_rows(draw(lambda d, t: d.harq_uniform(t, n_ues)))
-            bits, hbits, hretx, hstats = harq_step(
-                u, tb_new, hbits, hretx, alloc.sum(dim=-1) > 0.0)
-        elif bler > 0.0:   # HARQ-lite: lost blocks stay queued -> retx
-            ok = local_rows(draw(lambda d, t: d.harq_bernoulli(t, 1.0 - bler,
-                                                               n_ues)))
-            bits = tb_new * ok.to(tb_new.dtype)
-        else:
-            bits = tb_new
-        # clamp: served_bits <= backlog only up to float rounding
-        buf = torch.clamp(buf - (tb_new if harq_on else bits), min=0.0)
-        tput = bits / tti_s
-        avg = (1.0 - beta) * avg + beta * tput
-        new = state._replace(backlog=buf, pf_avg=avg,
-                             rr_cursor=state.rr_cursor + rb_chunk,
-                             harq_bits=hbits, harq_retx=hretx,
-                             t=state.t + 1)
+            with annotate("crrm.traffic"):
+                arrivals = local_rows(draw(
+                    lambda d, t: d.traffic(t, traffic_step)))
+                if churn_on:
+                    arrivals = torch.where(act, arrivals, 0.0)
+                buf = buf + arrivals
+        with annotate("crrm.sched"):
+            harq_pending = ((hbits > 0.0) if harq_on
+                            else torch.zeros_like(buf, dtype=torch.bool))
+            alloc = allocate(se, cqi, a_use, buf, avg, state.rr_cursor,
+                             harq_pending, act, fair)
+            drainable = torch.where(harq_pending, 0.0, buf)
+            tb_new = mac_sched.served_bits(
+                alloc, se, drainable, rb_bw, tti_s,
+                floor=1e-6 if relax is not None else 1e-30).sum(dim=-1)
+        with annotate("crrm.harq"):
+            hstats = None
+            if harq_on:
+                u = local_rows(draw(lambda d, t: d.harq_uniform(t, n_ues)))
+                bits, hbits, hretx, hstats = harq_step(
+                    u, tb_new, hbits, hretx, alloc.sum(dim=-1) > 0.0)
+            elif bler > 0.0:   # HARQ-lite: lost blocks stay queued -> retx
+                ok = local_rows(draw(
+                    lambda d, t: d.harq_bernoulli(t, 1.0 - bler, n_ues)))
+                bits = tb_new * ok.to(tb_new.dtype)
+            else:
+                bits = tb_new
+            # clamp: served_bits <= backlog only up to float rounding
+            buf = torch.clamp(buf - (tb_new if harq_on else bits), min=0.0)
+            tput = bits / tti_s
+            avg = (1.0 - beta) * avg + beta * tput
+            new = state._replace(backlog=buf, pf_avg=avg,
+                                 rr_cursor=state.rr_cursor + rb_chunk,
+                                 harq_bits=hbits, harq_retx=hretx,
+                                 t=state.t + 1)
         telem = None
         if telemetry:
-            telem = step_telemetry(new, a_use, alloc, bits, tb_new, tput,
-                                   hstats, prev_srv, n_dirty)
+            with annotate("crrm.telemetry"):
+                telem = step_telemetry(new, a_use, alloc, bits, tb_new, tput,
+                                       hstats, prev_srv, n_dirty)
         return new, tput, telem
 
     def step_telemetry(state, a_use, alloc, bits, tb_new, tput, hstats,
@@ -900,11 +920,12 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
 
     def tti_step(h, static, state, action, rs, draws, t: int, fair):
         """One TTI of one env: (state, tput, radio-state, telemetry)."""
-        prev_srv = state.serving
-        state, se, cqi, a_use, rs, n_dirty = channel(h, static, state,
-                                                     action, rs, draws, t)
-        state, tput, telem = mac(state, se, cqi, a_use, prev_srv, n_dirty,
-                                 lambda f: f(draws, t), fair)
+        with annotate("crrm.tti"):
+            prev_srv = state.serving
+            state, se, cqi, a_use, rs, n_dirty = channel(
+                h, static, state, action, rs, draws, t)
+            state, tput, telem = mac(state, se, cqi, a_use, prev_srv,
+                                     n_dirty, lambda f: f(draws, t), fair)
         return state, tput, rs, telem
 
     def batch_tti(hs, static, state, action, rss, draws, ts, fair):
@@ -937,20 +958,21 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
 
     def setup(static, state, action):
         """(hoisted constants, carried RadioState) for one specialisation."""
-        power_act = action is not None
-        h = prepare(static, state.U, power_act)
-        rs0 = None
-        if use_rs(power_act):
-            if static_geom and not churn_on and not faults_on:
-                # a static-geometry power action: computed once, held
-                h["rs"] = init_rs(static, state.U, action)
-            else:
-                pmul0 = (sim_faults.tx_multiplier(state.cell_state, faults)
-                         if faults_on else None)
-                rs0 = init_rs(static, state.U, action,
-                              fad=state.fad if fad_carried else None,
-                              pmul=pmul0)
-        return h, rs0
+        with annotate("crrm.radio_init"):
+            power_act = action is not None
+            h = prepare(static, state.U, power_act)
+            rs0 = None
+            if use_rs(power_act):
+                if static_geom and not churn_on and not faults_on:
+                    # a static-geometry power action: computed once, held
+                    h["rs"] = init_rs(static, state.U, action)
+                else:
+                    pmul0 = (sim_faults.tx_multiplier(state.cell_state, faults)
+                             if faults_on else None)
+                    rs0 = init_rs(static, state.U, action,
+                                  fad=state.fad if fad_carried else None,
+                                  pmul=pmul0)
+            return h, rs0
 
     def start(state):
         """The state a step or rollout runs on: the fault leaf seeded
@@ -1046,25 +1068,28 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
         rss = list(rss)
         t0 = state.t.tolist()          # the one host read, before the loop
         for i in range(n_tti):
-            state, tput, rss, telem = batch_tti(
-                hs, static, state, action, rss, draws, [t + i for t in t0],
-                fair)
+            with annotate("crrm.tti"):
+                state, tput, rss, telem = batch_tti(
+                    hs, static, state, action, rss, draws,
+                    [t + i for t in t0], fair)
             tputs.append(tput)
             telems.append(telem)
         return state, tputs, telems
 
     def step(static, state, draws, action=None, fairness_p=None):
-        state, (tput,), (telem,) = run(static, state, 1, draws, action,
-                                       fairness_p)
+        with annotate("crrm.rollout"):
+            state, (tput,), (telem,) = run(static, state, 1, draws, action,
+                                           fairness_p)
         return (state, tput, telem) if telemetry else (state, tput)
 
     def rollout(static, state, n_tti, draws, action=None, fairness_p=None):
-        state, tputs, telems = run(static, state, n_tti, draws, action,
-                                   fairness_p)
-        axis = state.t.dim()           # 0, or 1 after a batch axis
-        tput = torch.stack(tputs, dim=axis)
-        if telemetry:
-            return state, tput, obs_telemetry.stack(telems, dim=axis)
+        with annotate("crrm.rollout"):
+            state, tputs, telems = run(static, state, n_tti, draws, action,
+                                       fairness_p)
+            axis = state.t.dim()           # 0, or 1 after a batch axis
+            tput = torch.stack(tputs, dim=axis)
+            if telemetry:
+                return state, tput, obs_telemetry.stack(telems, dim=axis)
         return state, tput
 
     return EpisodeFns(step=step, rollout=rollout,

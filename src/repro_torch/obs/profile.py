@@ -7,14 +7,26 @@ The port of ``repro.obs.profile``:
   Chrome trace of everything launched inside it into ``log_dir`` and
   yields the profiler, whose ``key_averages()`` the caller may read
   (:func:`kernel_times` sums them by device kernel);
-* :func:`annotate` -- a named ``torch.profiler.record_function`` scope, so
-  engine phases (prepare / rollout / sync) are legible in that trace;
+* :func:`annotate` -- a named host-only span, so engine phases are legible
+  in that trace; the port's own spans are the fixed names of
+  :data:`SPANS`, each on the code it names;
 * :class:`StageTimer` -- the per-stage wall-time breakdown: synchronises
   the device of each stage's output tensors and renders an aligned table
   of stage -> (calls, total ms, share).
 
 Unlike the reference, :func:`trace` does not degrade to a no-op: the port
 has no silent fallback, so a profiler that fails raises.
+
+Spans are host-only ranges.  A ``torch.profiler.record_function`` range is
+a user annotation, and with CUDA activity on, the profiler copies it onto
+the device timeline as an event of the CUDA device type: a reader that
+takes every CUDA event for a kernel (launch counts, device time, idle
+gaps) would count each span as a kernel as long as its range.
+``_RecordFunctionFast`` records a plain host operation instead, on the
+profiler's clock, so a span names the kernels launched inside it without
+being one.  With no profiler recording, :func:`annotate` returns one shared
+no-op context manager: a span costs one flag read, where an idle
+``record_function`` allocates and costs ~11 us (the H100 machine's host).
 
 The reference's ``CompileCounter``, ``RetraceWatch`` and
 ``executable_cache_size`` count XLA compilations and jit-cache
@@ -29,6 +41,7 @@ import time
 from typing import Callable, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from repro_torch import tree
 
@@ -61,10 +74,62 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
+#: the port's spans: name -> the code it covers.  A span's parent is the
+#: span enclosing it on its thread: a TTI's stages sit inside its
+#: ``crrm.tti``, and that inside the call's ``crrm.rollout``.
+SPANS = {
+    "crrm.rollout": "mac/engine.py, one step or rollout call: its TTIs, "
+                    "the set-up and the stacking of the outputs",
+    "crrm.radio_init": "mac/engine.py setup(): the hoisted dense constants "
+                       "and the RadioState of a call (one per env in a "
+                       "batch)",
+    "crrm.tti": "mac/engine.py, one TTI: tti_step, or batch_tti for a "
+                "batch of envs",
+    "crrm.churn": "mac/engine.py channel(): births and deaths, the MAC "
+                  "leaves they reset, the newborn rows scattered",
+    "crrm.faults": "mac/engine.py channel(): the fault transition and the "
+                   "tx mask",
+    "crrm.radio": "mac/engine.py channel(): the dirty rows (walk, window "
+                  "index, fused_sinr or the torch rows), the fault "
+                  "re-pricing, or the dense chain (gains, RSRP, "
+                  "attachment, SINR to SE)",
+    "crrm.handover": "mac/engine.py channel(): newborn attachment, the A3 "
+                     "step and the serving-cell gather",
+    "crrm.traffic": "mac/engine.py mac(): the arrivals",
+    "crrm.sched": "mac/engine.py mac(): the allocation (pf weights, the "
+                  "segment reductions of mac/segments.py) and the served "
+                  "bits",
+    "crrm.harq": "mac/engine.py mac(): HARQ or HARQ-lite, the drain, the "
+                 "pf average update",
+    "crrm.telemetry": "mac/engine.py step_telemetry(): the TTI's KPIs",
+    "crrm.env.step": "env/crrm_env.py: one step, step_autoreset, "
+                     "step_batch or step_autoreset_batch call (the "
+                     "outermost)",
+    "crrm.env.reset": "env/crrm_env.py: an autoreset's fresh episode and "
+                      "its torch.where",
+    "crrm.env.score": "env/crrm_env.py _scored(): observation, reward, "
+                      "done, reward components",
+    "crrm.twin.chunk": "twin/server.py step_chunk(): one chunk, guarded or "
+                       "not",
+    "crrm.twin.summary": "twin/server.py: the chunk's KPI summary and its "
+                         "t and active_ues reads",
+    "crrm.twin.guard": "twin/server.py: carry_ok / carry_violations after "
+                       "a guarded chunk",
+    "crrm.twin.checkpoint": "twin/server.py checkpoint()",
+    "crrm.twin.restore": "twin/server.py restore()",
+}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named ``record_function`` scope: ``with annotate("rollout"):
-    fns.rollout(...)`` shows as a labelled span in a :func:`trace`."""
-    return torch.profiler.record_function(name)
+    """A named host-only span: ``with annotate("crrm.tti"): ...`` shows as
+    a host operation of that name in a :func:`trace` (module docstring).
+    With no profiler recording it returns one shared no-op context
+    manager."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def kernel_times(prof) -> Dict[str, tuple]:

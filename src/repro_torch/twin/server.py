@@ -57,6 +57,11 @@ the ``RadioState`` with the torch chain, while inside a chunk the dirty
 rows go through the kernel, which agrees with the torch chain to ~1e-6
 relative.
 
+Spans: each chunk runs inside ``crrm.twin.chunk``, its KPI summary, the
+guard, a checkpoint and a restore inside ``crrm.twin.summary``,
+``crrm.twin.guard``, ``crrm.twin.checkpoint`` and ``crrm.twin.restore``
+(``repro_torch.obs.profile.SPANS``).
+
     python -m repro_torch.twin.server --smoke [--device cpu]
 """
 from __future__ import annotations
@@ -68,6 +73,7 @@ import torch
 
 from repro_torch.mac.engine import Draws, seed_churn_state, seed_fault_state
 from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs.profile import annotate
 from repro_torch.robust import guard as robust_guard
 from repro_torch.robust.watchdog import (GuardViolation, TwinServerDown,
                                          WatchdogConfig, run_with_timeout)
@@ -169,17 +175,20 @@ class TwinServer:
         :attr:`last_telem`.  With a ``watchdog`` armed this is the guarded
         loop (module docstring).
         """
-        if self.watchdog is None:
-            return self._step_chunk_raw()
-        return self._step_chunk_guarded()
+        with annotate("crrm.twin.chunk"):
+            if self.watchdog is None:
+                return self._step_chunk_raw()
+            return self._step_chunk_guarded()
 
     def _step_chunk_raw(self) -> dict:
         gen = self._gen
         state, tput, telem = self._chunk(self.static, self.state,
                                          self.power, self.fairness)
-        kpis = obs_telemetry.summarize(telem, tti_s=self.sim.params.tti_s)
-        kpis["t"] = float(state.t)
-        kpis["active_ues"] = float(state.active.sum())
+        with annotate("crrm.twin.summary"):
+            kpis = obs_telemetry.summarize(telem,
+                                           tti_s=self.sim.params.tti_s)
+            kpis["t"] = float(state.t)
+            kpis["active_ues"] = float(state.active.sum())
         with self._commit:
             if gen != self._gen:
                 # a rollback superseded this attempt while it ran (it timed
@@ -198,11 +207,13 @@ class TwinServer:
             try:
                 kpis = run_with_timeout(self._step_chunk_raw,
                                         wd.chunk_timeout_s)
-                if not robust_guard.carry_ok(self.state):
-                    raise GuardViolation(
-                        "carry invariants violated after chunk: "
-                        + "; ".join(robust_guard.carry_violations(self.state)
-                                    or ["(guard tripped, no host detail)"]))
+                with annotate("crrm.twin.guard"):
+                    if not robust_guard.carry_ok(self.state):
+                        raise GuardViolation(
+                            "carry invariants violated after chunk: "
+                            + "; ".join(
+                                robust_guard.carry_violations(self.state)
+                                or ["(guard tripped, no host detail)"]))
             except Exception as e:  # noqa: BLE001 -- the watchdog's job
                 self.fault_history.append(
                     f"attempt {attempt} on inc_backend={self.inc_backend!r}:"
@@ -269,14 +280,15 @@ class TwinServer:
         """
         if self.ckpt_dir is None:
             raise ValueError("TwinServer built without ckpt_dir")
-        step = self.t
-        extra = {"chunk_tti": self.chunk_tti}
-        if block:
-            ckpt.save(self.ckpt_dir, step, self._tree(),
-                      keep_last=self.keep_last, extra=extra)
-            return step
-        return ckpt.save_async(self.ckpt_dir, step, self._tree(),
-                               keep_last=self.keep_last, extra=extra)
+        with annotate("crrm.twin.checkpoint"):
+            step = self.t
+            extra = {"chunk_tti": self.chunk_tti}
+            if block:
+                ckpt.save(self.ckpt_dir, step, self._tree(),
+                          keep_last=self.keep_last, extra=extra)
+                return step
+            return ckpt.save_async(self.ckpt_dir, step, self._tree(),
+                                   keep_last=self.keep_last, extra=extra)
 
     def restore(self, step=None) -> int:
         """Rewind to a checkpointed TTI (default: the newest valid one).
@@ -293,11 +305,12 @@ class TwinServer:
         with self._commit:
             # fence first: no chunk abandoned before this commits after it
             self._gen += 1
-        if step is None:
-            tree, _, step = ckpt.restore_latest_valid(self.ckpt_dir,
-                                                      self._tree())
-        else:
-            tree, _ = ckpt.restore(self.ckpt_dir, step, self._tree())
+        with annotate("crrm.twin.restore"):
+            if step is None:
+                tree, _, step = ckpt.restore_latest_valid(self.ckpt_dir,
+                                                          self._tree())
+            else:
+                tree, _ = ckpt.restore(self.ckpt_dir, step, self._tree())
         self.state, self.power = tree["state"], tree["power"]
         self.fairness = tree["fairness"]
         self._chunks_since_ckpt = 0

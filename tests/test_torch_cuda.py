@@ -711,6 +711,78 @@ def test_trace_on_the_card_holds_the_fused_kernel(cuda, tmp_path):
     assert sum(c for k, (_, c) in times.items() if "fused_sinr" in k) == 3
 
 
+#: a traced 3-TTI fused rollout of REPORT_EPISODE (argv[1], JSON) with an
+#: ``.item()`` inside a span; prints the trace's events as JSON rows
+#: ``[name, on the card, start us, end us, correlation id]``
+SPAN_PROBE = """
+import json, sys, tempfile
+import torch
+from repro_torch.core.crrm import CRRM
+from repro_torch.core.params import CRRM_parameters
+from repro_torch.mac.engine import Draws
+from repro_torch.obs import annotate, trace
+sim = CRRM(CRRM_parameters(**json.loads(sys.argv[1])), device="cuda")
+fns = sim.episode_fns(inc_backend="fused")
+static, state = sim.episode_static(), sim.init_episode_state()
+fns.rollout(static, state, 1, Draws(0, "cuda"))
+with tempfile.TemporaryDirectory() as d, trace(d) as prof:
+    _, tput = fns.rollout(static, state, 3, Draws(0, "cuda"))
+    with annotate("item"):
+        tput.sum().item()
+card = torch.autograd.DeviceType.CUDA
+print(json.dumps([[e.name, e.device_type == card, e.time_range.start,
+                   e.time_range.end, e.id] for e in prof.events()]))
+"""
+
+
+def test_spans_stay_on_the_host_and_name_the_launches(cuda):
+    """A traced 3-TTI fused rollout, in a process of its own as a benchmark
+    run is: no ``crrm.`` span reaches the device timeline; launch calls and
+    kernels are as many, and pairing them in start order pairs each kernel
+    with its own launch (the profiler's correlation id), as
+    ``crrm_bench/harness/spans.py`` assumes; each ``fused_sinr`` kernel
+    pairs with a launch inside ``crrm.radio``; an ``.item()`` inside a span
+    is one host sync.
+
+    Why a process of its own: after a profiler session that ran a kernel's
+    first call, a later session of the process can lose the record of its
+    own first kernel (seen on the H100), and a benchmark run profiles once.  Kernel times
+    are read on the host's clock only roughly (a kernel can read up to a
+    millisecond before its launch), so nothing here compares a kernel's
+    time with a host time."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    out = subprocess.run(
+        [sys.executable, "-c", SPAN_PROBE, json.dumps(REPORT_EPISODE)],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True,
+        text=True, timeout=600, check=True)
+    events = json.loads(out.stdout.splitlines()[-1])
+    device = [e for e in events if e[1]]
+    host = [e for e in events if not e[1]]
+    assert not [e[0] for e in device if e[0].startswith("crrm.")]
+    kernels = sorted((e for e in device
+                      if not e[0].lower().startswith(("memcpy", "memset"))),
+                     key=lambda e: e[2])
+    launches = sorted((e for e in host if e[0] in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx")), key=lambda e: e[2])
+    assert len(kernels) == len(launches) > 0
+    assert [k[4] for k in kernels] == [c[4] for c in launches]
+    radio = [e for e in host if e[0] == "crrm.radio"]
+    fused = [c[2] for k, c in zip(kernels, launches) if "fused_sinr" in k[0]]
+    assert len(fused) == 3 and len(radio) == 3
+    assert all(any(r[2] <= c <= r[3] for r in radio) for c in fused)
+    (item,) = [e for e in host if e[0] == "item"]
+    syncs = [e for e in host if e[0] in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize") and item[2] <= e[2] <= item[3]]
+    assert len(syncs) == 1
+
+
 def test_episode_report_on_the_card_launches_once_per_tti(cuda):
     from repro_torch.obs import report
     sim = CRRM(CRRM_parameters(**REPORT_EPISODE), device=cuda)
