@@ -1,5 +1,5 @@
-"""Public wrappers over the port's kernels: pairwise distances and the
-fused SINR pipeline.
+"""Public wrappers over the port's kernels: pairwise distances, the
+fused SINR pipeline and the fault re-pricing over the carried gain.
 
 The counterpart of ``repro.kernels.ops``.  The CUDA kernels mask ragged
 edges themselves, so unlike the TPU wrappers nothing is padded here and
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import fused_sinr as _fused
 from repro_torch.kernels import pairwise_dist as _dist
+from repro_torch.kernels import reprice_cells as _reprice
 
 
 def pairwise_dist(U, C):
@@ -42,3 +43,14 @@ def fused_sinr(U, C, Pw, *, pathgain_fn, noise_w: float, boresight=None,
     u = total - wbest
     gamma = wbest / (noise_w + u)
     return gamma, barg[:, 0], wbest, u
+
+
+def reprice_cells(G, P, noise_w: float, G0=None):
+    """(a, gamma): every UE row of the carried gain ``G`` (N, M) or
+    (N, M, K) re-priced under the powers ``P`` (M, K) in one pass.
+
+    ``a`` is the (N,) int32 lowest-index argmax of the measurement (of the
+    unfaded ``G0`` (N, M) where it is given), ``gamma`` the (N, K) SINR
+    against it.  The fault path of the incremental engine calls it
+    (``radio.radio_update_cells``) on every TTI of a fault run."""
+    return _reprice.reprice_cells(G, P, noise_w, G0)

@@ -384,7 +384,9 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
     ``sim.faults.FaultConfig``) walks each cell's UP/SLEEP/DOWN chain per
     TTI and masks the tx power with it; the incremental path carries the
     gain matrices and re-derives every per-UE output when a cell changes
-    state (``radio.radio_update_cells``, branch-free: no host read).
+    state (``radio.radio_update_cells``, branch-free: no host read;
+    under ``"auto"`` one pass of the ``reprice_cells`` kernel where the
+    state carries no handover tables and the cells are not sharded).
 
     ``relax`` (a ``radio.RelaxConfig``) makes ``rollout`` differentiable
     with respect to a power ``action`` (or anything else the recomputed
@@ -772,9 +774,10 @@ def make_episode_fns(params, n_ues: int, n_cells: int,
                     if faults_on:
                         # a transition re-prices every UE against the
                         # masked P from the carried gains (selected on
-                        # any(changed))
+                        # any(changed)); "auto" in one kernel pass
                         r = radio.radio_update_cells(cfg, r, P, changed,
-                                                     cell_axis=cell_ax)
+                                                     cell_axis=cell_ax,
+                                                     backend=inc_backend)
                 rs = r
             if ho_on:
                 with annotate("crrm.handover"):

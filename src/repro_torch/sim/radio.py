@@ -500,32 +500,51 @@ def radio_update_rows_fused(cfg: RadioConfig, state: RadioState, U, C, bore,
 
 
 def radio_update_cells(cfg: RadioConfig, state: RadioState, P,
-                       dirty_cell_mask, *, cell_axis=None) -> RadioState:
+                       dirty_cell_mask, *, cell_axis=None,
+                       backend=None) -> RadioState:
     """Apply a per-cell power delta from the carried gain matrices
     (``with_gain=True``): every per-UE output recomputes without geometry
     or pathloss, and is selected against the carried one on
-    ``dirty_cell_mask.any()`` (branch-free, no host sync).  ``cell_axis``
-    shards the cells as in :func:`_chain_rows` (the carried gains and ``P``
-    are this shard's block; ``dirty_cell_mask`` is replicated)."""
-    R = rsrp(state.G, P)
-    if cfg.rayleigh_fading and cfg.attach_ignores_fading:
-        meas = rsrp(state.G0, P).sum(dim=2)
-    else:
-        meas = R.sum(dim=2)
-    a = best_cell(meas, cell_axis)
-    se = cqi = se_all = cqi_all = None
-    if state.se_all is not None:
-        total = cell_total(R, cell_axis)
-        gamma_all = R / (cfg.noise_w + (total[:, None, :] - R))
-        se_all, cqi_all = se_chain(cfg, gamma_all)
-        a = None
-    else:
-        gamma, _, _ = sinr(R, a, cfg.noise_w, cell_axis)
+    ``dirty_cell_mask.any()`` (branch-free, no host sync).  The carried
+    gains come back as they are (the row update patches them in place).
+    ``cell_axis`` shards the cells as in :func:`_chain_rows` (the carried
+    gains and ``P`` are this shard's block; ``dirty_cell_mask`` is
+    replicated).
+
+    ``backend="auto"`` re-prices in one pass of ``kernels.ops.reprice_cells``
+    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors)
+    where the state carries no handover tables and the cells are not
+    sharded; ``SE``/``CQI`` then follow from its ``gamma`` in torch.  Every
+    other backend, the tables and a cell-sharded mesh take the torch
+    re-pricing."""
+    attach_on_mean = cfg.rayleigh_fading and cfg.attach_ignores_fading
+    if backend == "auto" and state.se_all is None and cell_axis is None:
+        from repro_torch.kernels import ops
+        a, gamma = ops.reprice_cells(state.G, P.contiguous(), cfg.noise_w,
+                                     state.G0 if attach_on_mean else None)
         se, cqi = se_chain(cfg, gamma)
-    new = RadioState(meas=meas, a=a, se=se, cqi=cqi, se_all=se_all,
-                     cqi_all=cqi_all, G=state.G, G0=state.G0)
+        new = state._replace(a=a, se=se, cqi=cqi)
+    else:
+        R = rsrp(state.G, P)
+        if attach_on_mean:
+            meas = rsrp(state.G0, P).sum(dim=2)
+        else:
+            meas = R.sum(dim=2)
+        a = best_cell(meas, cell_axis)
+        se = cqi = se_all = cqi_all = None
+        if state.se_all is not None:
+            total = cell_total(R, cell_axis)
+            gamma_all = R / (cfg.noise_w + (total[:, None, :] - R))
+            se_all, cqi_all = se_chain(cfg, gamma_all)
+            a = None
+        else:
+            gamma, _, _ = sinr(R, a, cfg.noise_w, cell_axis)
+            se, cqi = se_chain(cfg, gamma)
+        new = state._replace(meas=meas, a=a, se=se, cqi=cqi, se_all=se_all,
+                             cqi_all=cqi_all)
     any_dirty = torch.any(dirty_cell_mask)
-    return RadioState(*(None if o is None else torch.where(any_dirty, n, o)
+    return RadioState(*(o if o is None or n is o
+                        else torch.where(any_dirty, n, o)
                         for n, o in zip(new, state)))
 
 

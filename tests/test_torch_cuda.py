@@ -12,6 +12,13 @@ exact except on rows whose two best measurements differ by less than 1e-5
 relative in the plain version (counted; at most 1 % of the rows).  The
 pairwise-distance kernel vs ``pairwise_dist_plain``: rtol 1e-6 (the kernel
 rounds each product and sum as the plain version's separate kernels do).
+The fault re-pricing kernel vs ``reprice_cells_plain``: the attachment
+bit for bit at K = 1 (both rank the same rounded products; at K > 1 the
+measurement's K-sum may round otherwise, and rows off are counted), and
+gamma within want * (2 M u (1 + want) + 8 u), u = 2^-24
+(``reprice_cells.gamma_excess``): the cell total is a sum of M
+non-negative terms in another order, each within (M - 1) u of it, which
+``total - w`` and the division carry to gamma.
 The LM serving path, which has no hand-written kernel, is held on the card
 to the port on the CPU (reduced configs) and to the reference's full-width
 fixture (``tests/lm_fixture.py``); LM training to the reference's
@@ -27,6 +34,7 @@ from repro_torch.core.params import CRRM_parameters
 from repro_torch.kernels import fused_sinr as fk
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pdk
+from repro_torch.kernels import reprice_cells as rck
 from repro_torch.mac.engine import Draws
 from repro_torch.sim import pathloss, phy, radio
 
@@ -924,3 +932,114 @@ def test_train_step_defaults_to_the_card(cuda):
     hist = launch_train.main(["--reduced", "--steps", "3", "--batch", "2",
                               "--seq-len", "16"])
     assert len(hist) == 1 and np.isfinite(hist[0])
+
+
+def reprice_inputs(n, m, k, layout, dev, seed=0):
+    """Gains over 8 decades, powers with every fifth cell dark."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n, m, k) if "nmk" in layout else (n, m)
+    G = 10.0 ** (-6.0 - 8.0 * torch.rand(shape, generator=g, device=dev))
+    P = 10.0 * torch.rand((m, k), generator=g, device=dev)
+    P[::5] = 0.0
+    G0 = (10.0 ** (-6.0 - 8.0 * torch.rand((n, m), generator=g,
+                                            device=dev))
+          if "g0" in layout else None)
+    return G, P, G0
+
+
+@pytest.mark.parametrize("n,m,k,layout", [
+    (1, 1, 1, "nm"), (3, 6, 1, "nm"), (5, 127, 1, "nm"), (33, 257, 1, "nm"),
+    (1001, 57, 4, "nm"), (1001, 57, 4, "nmk"), (999, 21, 4, "nmk+g0"),
+    (4099, 127, 1, "nm+g0"), (2001, 600, 12, "nm"), (777, 31, 16, "nmk")])
+def test_reprice_cells_matches_plain(cuda, n, m, k, layout):
+    """Ragged rows (tiles of 4 to 32 rows), cells past a bank multiple, K
+    up to 16, every gain layout."""
+    G, P, G0 = reprice_inputs(n, m, k, layout, cuda)
+    before = rck.reprice_cells.launches
+    a, gamma = ops.reprice_cells(G, P, 1e-13, G0)
+    torch.cuda.synchronize()
+    assert rck.reprice_cells.launches == before + 1
+    a_p, gamma_p = rck.reprice_cells_plain(G, P, 1e-13, G0)
+    same = a == a_p
+    if k == 1:
+        assert bool(same.all())
+    else:
+        assert int((~same).sum()) <= n // 1000
+    assert rck.gamma_excess(gamma[same], gamma_p[same], m) <= 1.0
+
+
+def test_reprice_cells_exact_ties_take_the_lowest_cell(cuda):
+    """Ties across lanes and tiles; a NaN ranks first (its first cell) and
+    an all -inf row attaches to cell 0, as torch.argmax does."""
+    G = torch.full((4096, 127), 1e-9, device=cuda)
+    G[:, 3] = G[:, 70] = G[:, 126] = 2e-9
+    G[7, 50] = G[7, 90] = float("nan")
+    G[9] = float("-inf")
+    P = torch.ones((127, 1), device=cuda)
+    a, _ = rck.reprice_cells(G, P, 1e-13)
+    assert int(a[7]) == 50 and int(a[9]) == 0
+    a[7] = a[9] = 3
+    assert bool((a == 3).all())
+    a_p, _ = rck.reprice_cells_plain(G, P, 1e-13)
+    assert int(a_p[7]) == 50 and int(a_p[9]) == 0
+
+
+def test_reprice_cells_at_full_width(cuda):
+    """The million-UE field's carried gain (1M x 127) under a storm's power:
+    17 dark and 10 sleeping cells."""
+    sim = CRRM(CRRM_parameters(n_ues=1_000_000, n_cells=127, n_sectors=1,
+                               seed=3))
+    st, cfg = sim.radio_static(), sim.radio_config()
+    G = radio.pathgains(cfg, sim.U._data, st.C, st.bore)
+    order = torch.randperm(127, generator=torch.Generator().manual_seed(5))
+    mult = torch.ones(127)
+    mult[order[:17]] = 0.0
+    mult[order[17:27]] = 0.1
+    P = (st.P * mult.to(cuda)[:, None]).contiguous()
+    a, gamma = rck.reprice_cells(G, P, cfg.noise_w)
+    torch.cuda.synchronize()
+    a_p, gamma_p = rck.reprice_cells_plain(G, P, cfg.noise_w)
+    assert torch.equal(a, a_p)
+    assert rck.gamma_excess(gamma, gamma_p, 127) <= 1.0
+
+
+def test_reprice_cells_launches_once_a_storm_tti(cuda):
+    from repro_torch.sim.faults import FaultConfig
+    storm = FaultConfig(outage_rate_hz=20.0, mean_outage_s=0.03,
+                        sleep_rate_hz=20.0, mean_sleep_s=0.02,
+                        sleep_atten_db=10.0)
+    sim = CRRM(CRRM_parameters(n_ues=5000, n_cells=19, n_sectors=1, seed=2,
+                               radio_mode="incremental", mobility_step_m=10.0,
+                               mobility_move_frac=0.1, faults=storm))
+    static, state = sim.episode_static(), sim.init_episode_state()
+    out = {}
+    for route, per_tti in (("auto", 1), ("torch", 0)):
+        before = rck.reprice_cells.launches
+        out[route] = sim.episode_fns(inc_backend=route).rollout(
+            static, state, 20, Draws(4, "cuda"))
+        torch.cuda.synchronize()
+        assert rck.reprice_cells.launches - before == 20 * per_tti
+    before = rck.reprice_cells.launches
+    sim.episode_fns(inc_backend="auto", faults=0).rollout(
+        static, state, 5, Draws(4, "cuda"))
+    assert rck.reprice_cells.launches == before
+    (s_a, _), (s_t, _) = out["auto"], out["torch"]
+    assert torch.equal(s_a.cell_state, s_t.cell_state)
+    assert torch.equal(s_a.serving, s_t.serving)
+
+
+def test_reprice_cells_rejects_what_it_cannot_take(cuda):
+    G, P = torch.rand((10, 4), device=cuda), torch.rand((4, 1), device=cuda)
+    with pytest.raises(TypeError):
+        rck.reprice_cells(G.double(), P, 1e-13)
+    with pytest.raises(ValueError):
+        rck.reprice_cells(G, P.cpu(), 1e-13)
+    with pytest.raises(ValueError, match="at least one"):
+        rck.reprice_cells(G[:0], P, 1e-13)
+    with pytest.raises(ValueError, match="16-byte"):
+        rck.reprice_cells(torch.rand(41, device=cuda)[1:].view(10, 4), P,
+                          1e-13)
+    with pytest.raises(ValueError, match="shared memory"):
+        rck.reprice_cells(torch.rand((2, 4096, 16), device=cuda),
+                          torch.rand((4096, 16), device=cuda), 1e-13,
+                          G0=torch.rand((2, 4096), device=cuda))
