@@ -30,13 +30,16 @@ class Entry(Base):
         faults = self._faults(FaultConfig)
         self.sim = CRRM(CRRM_parameters(**self.params, faults=faults),
                         device=self.device)
-        self.fns = self.sim.episode_fns(
-            inc_backend=self.traffic.get("inc_backend", "auto"))
+        self.fns = self.episode_fns()
         self.static = self.sim.episode_static()
         self.state = self.sim.init_episode_state()
         self.draws = Draws(self.seed, self.device)
         self.start = start(self.static, self.state)
         self.last = None
+
+    def episode_fns(self):
+        return self.sim.episode_fns(
+            inc_backend=self.traffic.get("inc_backend", "auto"))
 
     def call(self):
         self.last = None

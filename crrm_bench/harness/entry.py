@@ -14,6 +14,11 @@ traffic file's ``"entry"`` and found by that name
 * ``numbers(prog, ref)``, the numbers that ``correct`` compares, built from
   the general comparisons of :mod:`crrm_bench.harness.check`.
 
+A kind whose ``Entry`` sets ``spans_ranks`` runs on every rank of a cell
+over several (``harness/ranks.py``): it is built with ``ranks``, a
+:class:`crrm_bench.harness.ranks.RankContext`, and rank 0's
+``program_outputs`` are judged.  Every other kind gets ``ranks=None``.
+
 A later benchmark adds a kind by adding such a file.
 """
 from __future__ import annotations
@@ -43,8 +48,11 @@ def ref_start(su) -> dict:
 
 
 class Base:
-    def __init__(self, cell, seed: int, device):
+    spans_ranks = False
+
+    def __init__(self, cell, seed: int, device, ranks=None):
         self.seed = int(seed)
+        self.ranks = ranks
         self.device = torch.device(device)
         self.traffic = cell.traffic
         self.params = dict(cell.config["CRRM_parameters"],

@@ -12,6 +12,13 @@ check the outputs of the window's last call against the plain reference
 (``harness/check.py``) once the window has closed and the peak memory has
 been read, and print each compared number beside its limit as the last
 lines on standard error and under ``check`` in the result's line.
+
+A cell over several ranks (``harness/ranks.py``) is read as one result:
+the fullest rank's peak memory, the failed calls of all ranks, the
+forbidden modules of any rank, rank 0's trace for the per-layer metrics
+and the busy seconds averaged over the ranks; each rank's own readings go
+under ``device.ranks`` and its launches on the path line.  ``correct``
+judges rank 0, which holds the global outputs.
 """
 from __future__ import annotations
 
@@ -49,10 +56,28 @@ def _fail(msg: str) -> int:
     return 2
 
 
-def launch_counts() -> dict:
+def _kernels() -> dict:
+    """The kernel wrappers whose launches the path line counts; the
+    re-pricing kernel's only where the run has loaded it, so that counting
+    imports nothing."""
     from repro_torch.kernels import fused_sinr, pairwise_dist
-    return {"fused_sinr": fused_sinr.fused_sinr_accumulate.launches,
-            "pairwise_dist": pairwise_dist.pairwise_dist.launches}
+    out = {"fused_sinr": fused_sinr.fused_sinr_accumulate,
+           "pairwise_dist": pairwise_dist.pairwise_dist}
+    reprice = sys.modules.get("repro_torch.kernels.reprice_cells")
+    if reprice is not None:
+        out["reprice_cells"] = reprice.reprice_cells
+    return out
+
+
+def launch_counts() -> dict:
+    counts = {k: fn.launches for k, fn in _kernels().items()}
+    counts.setdefault("reprice_cells", 0)
+    return counts
+
+
+def zero_launches():
+    for fn in _kernels().values():
+        fn.launches = 0
 
 
 class HostLog:
@@ -83,10 +108,12 @@ class HostLog:
 
 
 def run(argv, *, root: Path, device: str = "cuda", t_start=None,
-        out=sys.stdout, control=False) -> int:
+        out=sys.stdout, control=False, worker_hook=None) -> int:
     """The run; returns the exit code.  ``device="cpu"`` is for the tests
     of the harness alone: a benchmark run is on the card.  ``control``
-    puts the reference, computed in bfloat16, in the program's place."""
+    puts the reference, computed in bfloat16, in the program's place.
+    ``worker_hook(rank)``, a picklable callable, runs first in each worker
+    rank of a cell over several ranks: the tests break a rank with it."""
     t_start = time.perf_counter() if t_start is None else t_start
     args = parse(argv)
     import torch
@@ -96,13 +123,34 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
             return _fail("no CUDA device: the benchmark measures the card")
     if not (Path(root) / "src" / "repro_torch").is_dir():
         return _fail(f"the program (src/repro_torch) is not under {root}")
-    from crrm_bench.harness import check, manifest, trace
+    from crrm_bench.harness import manifest
     cell = manifest.cell(root, args.workload, Path(root) / "crrm_bench")
     if device == "cuda" and torch.cuda.device_count() < cell.chips:
         return _fail(f"{args.workload} needs {cell.chips} devices; "
                      f"{torch.cuda.device_count()} present")
     kind = manifest.entry_kind(cell.bench_dir, cell.traffic["entry"])
-    phases.append(("harness", time.perf_counter()))
+    spans = kind.Entry.spans_ranks
+    if cell.chips == 1 and not spans:
+        phases.append(("harness", time.perf_counter()))
+        return _measure(args, cell, kind, device, t_start, phases, out,
+                        control)
+    if not spans:
+        return _fail(f"{args.workload} asks for {cell.chips} chips; its "
+                     f"entry kind {cell.traffic['entry']!r} runs on one")
+    from crrm_bench.harness import ranks
+    with ranks.Team(cell, args.seed, args.seconds, args.trace, device,
+                    t_start, worker_hook) as team:
+        phases.append(("harness", time.perf_counter()))
+        return _measure(args, cell, kind, device, t_start, phases, out,
+                        control, team)
+
+
+def _measure(args, cell, kind, device, t_start, phases, out, control,
+             team=None) -> int:
+    """Set up, warm up, measure, check and print; ``team`` runs the other
+    ranks of a cell over several (``harness/ranks.py``)."""
+    import torch
+    from crrm_bench.harness import check, manifest, trace
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
@@ -110,7 +158,13 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
         torch.empty(1, device=device)
         torch.cuda.reset_peak_memory_stats()
     phases.append(("cuda_context", time.perf_counter()))
-    entry = kind.Entry(cell, args.seed, device)
+    if team is None:
+        entry = kind.Entry(cell, args.seed, device)
+    else:
+        entry = kind.Entry(cell, args.seed, team.device, ranks=team.join())
+        sync = team.sync
+        phases.append(("ranks", time.perf_counter()))
+    reads = None
     try:
         entry.setup()
         sync()
@@ -122,9 +176,7 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
         t_prev, setup_phases = t_start, {}
         for name, t in phases:
             setup_phases[name], t_prev = t - t_prev, t
-        from repro_torch.kernels import fused_sinr, pairwise_dist
-        fused_sinr.fused_sinr_accumulate.launches = 0
-        pairwise_dist.pairwise_dist.launches = 0
+        zero_launches()
         step_ms, calls = [], 0
 
         def window(n_calls=None):
@@ -132,6 +184,8 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
             t0 = time.perf_counter()
             while True:
                 c0 = time.perf_counter()
+                if team is not None:
+                    team.go()
                 entry.call()
                 sync()
                 step_ms.append((time.perf_counter() - c0) * 1e3)
@@ -141,6 +195,8 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
                         break
                 elif calls >= n_calls:
                     break
+            if team is not None:
+                team.stop()
             return time.perf_counter() - t0
 
         tr = None
@@ -154,9 +210,13 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
         host = host.close()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         counts = launch_counts()
+        if team is not None:
+            from crrm_bench.harness import ranks
+            reads = team.gather(ranks.report(entry, team.device, calls, tr))
+            peak = max(r["memory_peak_bytes"] for r in reads)
         ttis = entry.ttis(calls)
         half = len(step_ms) // 2
-        print(json.dumps({"path": {
+        path = {
             "route": entry.route(), "calls": calls, "ttis": ttis,
             "launches": counts,
             "launches_per_tti": {k: v / ttis for k, v in counts.items()},
@@ -171,14 +231,18 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
                 float(np.percentile(q, 95))
                 for q in np.array_split(np.asarray(step_ms), 4)]
             if len(step_ms) >= 4 else None,
-            "setup_phases_s": setup_phases, "window_host": host}}),
-            file=out, flush=True)
+            "setup_phases_s": setup_phases, "window_host": host}
+        if reads is not None:
+            path["ranks"] = [{k: r[k] for k in ("rank", "calls", "launches")}
+                             for r in reads]
+        print(json.dumps({"path": path}), file=out, flush=True)
         ctx = {"ttis": ttis, "params": entry.params,
                "window_s": window_s, "call_ms": step_ms,
                "peak_bytes": peak, "setup_s": setup_s,
                "fused_sinr_rows": entry.dirty_rows(calls),
                "fused_sinr_launches": counts["fused_sinr"]}
-        failed = entry.failed()
+        failed = entry.failed() if reads is None else sum(
+            r["failed"] for r in reads)
         # -- correct: the window's last call against the reference ------
         prog = entry.program_outputs()
         if cuda:
@@ -204,11 +268,18 @@ def run(argv, *, root: Path, device: str = "cuda", t_start=None,
         dev["busy_s"] = trace.busy_s(tr)
         dev["window_s"] = tr.window_s
         result["breakdown"] = trace.breakdown(tr)
+    if reads is not None:
+        keys = ("rank", "memory_peak_bytes", "busy_s", "window_s")
+        dev["ranks"] = [{k: r[k] for k in keys if k in r} for r in reads]
+        if args.trace:
+            dev["busy_s"] = sum(r["busy_s"] for r in reads) / len(reads)
     # a non-finite number is printed as its name: JSON has no NaN
     num = lambda x: x if math.isfinite(x) else str(x)
     result["check"] = {name: {"value": num(v), "limit": num(lim)}
                        for name, v, lim in rows}
     bad = forbidden_modules()
+    if reads is not None:
+        bad = sorted(set(bad).union(*(r["forbidden"] for r in reads)))
     if bad:
         return _fail(f"modules of JAX or the JAX package loaded: {bad}")
     for name, v, lim in rows:

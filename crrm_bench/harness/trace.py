@@ -46,11 +46,15 @@ def busy_s(tr: Trace) -> float:
 
 
 def _from_events(prof):
+    """Device and host events; a user annotation on the device (NCCL's
+    ``nccl:all_reduce`` around its kernel) is no device operation."""
     dev, host = [], []
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.events():
         s, t = float(e.time_range.start), float(e.time_range.end)
         if e.device_type == cuda:
+            if getattr(e, "is_user_annotation", False):
+                continue
             dev.append((e.name, s, t))
         else:
             host.append((e.name, s, t))

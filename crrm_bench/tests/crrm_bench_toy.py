@@ -4,17 +4,23 @@
 the program's ``src/`` beside it, and adds, for each cell of the real
 manifest, a toy configuration (the cell's own with a few hundred UEs), a
 toy traffic file (the cell's own with short calls) and a copy of the
-cell's limits, plus a ``BENCHMARK.json`` that lists the toys.  No file of
+cell's limits, plus a ``BENCHMARK.json`` that lists the toys, and the
+cells over several ranks of :data:`TOY_MESH`: ``rollout_mesh`` on the toy
+``crrm_uma_1m``, its traffic file written into the copy alone.  No file of
 the harness is edited.
+
+The ``worker_hook`` functions below break a worker rank of such a cell.
 """
 from __future__ import annotations
 
 import contextlib
 import io
 import json
+import os
 import shutil
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -26,6 +32,10 @@ for _p in (str(ROOT / "src"), str(ROOT)):
 #: the toy's sizes: UEs, and cells for the omni configurations
 TOY_UES = 400
 TOY_CELLS_OMNI = 7
+#: toy cells over several ranks, gloo ranks on the CPU: name -> chips
+TOY_MESH = {"toy_uma1m_mesh2": 2, "toy_uma1m_mesh4": 4}
+#: the real cell whose traffic and limits the toy mesh cells take
+MESH_OF = "uma1m_full"
 
 
 def manifest() -> dict:
@@ -91,6 +101,19 @@ def toy_root(tmp: Path) -> Path:
         toys["workloads"].append(dict(w, name=name,
                                       config="toy_" + w["config"],
                                       traffic=f"toy_{w['traffic']}"))
+    mesh = {w["name"]: w for w in real["workloads"]}[MESH_OF]
+    tr = json.loads((BENCH / "traffic" / f"{mesh['traffic']}.json")
+                    .read_text())
+    tr = dict(_toy_traffic(tr, scale[mesh["config"]]), entry="rollout_mesh")
+    (tmp / "crrm_bench" / "traffic" / "toy_rollout_mesh.json").write_text(
+        json.dumps(tr))
+    for name, chips in TOY_MESH.items():
+        shutil.copy(BENCH / "limits" / f"{MESH_OF}.json",
+                    tmp / "crrm_bench" / "limits" / f"{name}.json")
+        toys["workloads"].append(dict(
+            mesh, name=name, config="toy_" + mesh["config"],
+            traffic="toy_rollout_mesh", chips=chips,
+            why=f"the toy rollout on a UE mesh of {chips} gloo ranks"))
     for m in toys["end_to_end"] + toys["per_layer"]:
         if "workloads" in m:
             m["workloads"] = ["toy_" + n for n in m["workloads"]]
@@ -116,7 +139,7 @@ def jax_set_aside():
 
 
 def run(root: Path, workload: str, seed: int = 3, trace: int = 0,
-        control: bool = False):
+        control: bool = False, worker_hook=None):
     """One CPU run of the harness: ``(exit code, stdout lines)``."""
     from crrm_bench.harness import main
     buf = io.StringIO()
@@ -124,7 +147,7 @@ def run(root: Path, workload: str, seed: int = 3, trace: int = 0,
         rc = main.run(["--workload", workload, "--seed", str(seed),
                        "--seconds", "0.01", "--trace", str(trace)],
                       root=root, device="cpu", t_start=time.perf_counter(),
-                      out=buf, control=control)
+                      out=buf, control=control, worker_hook=worker_hook)
     return rc, buf.getvalue().splitlines()
 
 
@@ -132,3 +155,40 @@ def result(root: Path, workload: str, **kw) -> dict:
     rc, lines = run(root, workload, **kw)
     assert rc == 0, lines
     return json.loads(lines[-1])
+
+
+# -- worker hooks: each runs first in a worker rank (``functools.partial``
+# binds the directory where the worker notes its process id) -------------
+def _own_part(x, ax):
+    return x.clone()
+
+
+def leave_out_psum(rank):
+    """The exchange between ranks left out: ``psum`` returns the rank's own
+    part (rank 0, the test's own process, is patched by the test)."""
+    from repro_torch.core import distributed
+    distributed.psum = _own_part
+
+
+def _note_pid(pid_dir):
+    Path(pid_dir, f"{os.getpid()}.pid").touch()
+
+
+def raise_at_setup(pid_dir, rank):
+    _note_pid(pid_dir)
+    from crrm_bench.entries import rollout_mesh
+
+    def setup(self):
+        raise RuntimeError(f"rank {rank} fails at set-up")
+    rollout_mesh.Entry.setup = setup
+
+
+def stall(pid_dir, rank):
+    _note_pid(pid_dir)
+    from crrm_bench.entries import rollout_mesh
+    rollout_mesh.Entry.call = lambda self: time.sleep(3600)
+
+
+def load_jax(pid_dir, rank):
+    _note_pid(pid_dir)
+    sys.modules["jax"] = types.ModuleType("jax")

@@ -3,8 +3,10 @@ underneath comes out not correct, for each fault a cell can have: a step
 that returns its state unchanged, one that returns its PF averages and
 backlogs unchanged and the rest of its state stepped, half of the UEs
 left out of the throughput, an answer altered where it is produced (the
-spectral efficiency of the radio rows, 1 % high).  No cell spans chips, so no
-exchange between chips can be left out."""
+spectral efficiency of the radio rows, 1 % high).  On the toy cell over
+two ranks, the exchange between ranks left out (``core.distributed.psum``
+returning the rank's own part, so the pf denominators count one shard's UEs
+and the outputs are reassembled from one shard) comes out not correct too."""
 import pytest
 
 from crrm_bench_toy import manifest, result, toy_root
@@ -65,6 +67,14 @@ def _break(monkeypatch, fault):
 def test_broken_path_is_not_correct(root, monkeypatch, workload, fault):
     _break(monkeypatch, fault)
     res = result(root, workload, seed=5)
+    assert res["correct"] is False, res["check"]
+
+
+def test_exchange_between_ranks_left_out_is_not_correct(root, monkeypatch):
+    from crrm_bench_toy import _own_part, leave_out_psum
+    from repro_torch.core import distributed
+    monkeypatch.setattr(distributed, "psum", _own_part)
+    res = result(root, "toy_uma1m_mesh2", seed=5, worker_hook=leave_out_psum)
     assert res["correct"] is False, res["check"]
 
 

@@ -42,6 +42,13 @@ def test_a_run_loads_no_jax(tmp_path):
         from crrm_bench.harness import main
         assert main.forbidden_modules() == [], main.forbidden_modules()
         assert "repro_torch" in sys.modules
+        # a cell on one chip joins no process group and starts no process
+        import multiprocessing, threading
+        import torch.distributed as dist
+        assert "crrm_bench.harness.ranks" not in sys.modules
+        assert not dist.is_initialized()
+        assert multiprocessing.active_children() == []
+        assert threading.active_count() == 1
         # a run that finds JAX loaded fails and prints no result
         import io, time, types
         sys.modules["jax"] = types.ModuleType("jax")
